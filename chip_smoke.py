@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Builds the five hand-written kernels (K1-K5) from
-``tinyrenderer_tpu_torch/csrc`` and runs, each phase asserting or letting
-its exception propagate:
+Builds the six hand-written kernels (K1-K5, K7) from
+``tinyrenderer_tpu_torch/csrc`` (one ``nvcc`` a source, in parallel) and
+runs, each phase asserting or letting its exception propagate:
 
 1. K1-K3 against their plain PyTorch versions, at the shapes the 1080p
    frame gives them (captured from one frame of ``levels/demo.lvl``), with
@@ -21,7 +21,17 @@ its exception propagate:
    versions at the captured shapes; ten engine frames are timed with the
    launch counters reset just before (the first re-renders the atlas); and
    one frame is rendered through the kernels and again through the plain
-   versions.
+   versions;
+5. the textured frame and the forward overlay: (a) the demo world with
+   every second cube textured and its point light (a light billboard) at
+   1920x1080 runs until its capacities settle; K7 is held against its
+   plain version at both call sites (the compacted material sample and the
+   overlay sprite) and K3 with its material plane against its plain
+   version, at the captured shapes; ten engine frames are timed with the
+   launch counters reset just before; one frame is rendered through the
+   kernels and again through the plain versions; (b) ``levels/demo.lvl``
+   with its billboard and (c) its forward-only frame, each kernels
+   against plain versions.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one CUDA device;
 exits non-zero without a result line when there is none). The last line
@@ -77,7 +87,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from tinyrenderer_tpu_torch import kernels
-    from tinyrenderer_tpu_torch.ops import raster, resolve, shading
+    from tinyrenderer_tpu_torch.ops import (compact, raster, resolve,
+                                            sampling, shading)
     from tinyrenderer_tpu_torch.render import frame as framelib
     from tinyrenderer_tpu_torch.render.engine import Engine
     from tinyrenderer_tpu_torch.shared import RenderConfig, demo, verify
@@ -110,9 +121,10 @@ def main() -> int:
             return inner(*args, **kw)
         return _patched(module, name, fn)
 
-    def render3():
-        return framelib.render_frame(eng3._pack.scene, eng3._pack.lights,
-                                     cam3, eng3.params, env3, cfg3)
+    def render3(cfg=cfg3):
+        return framelib.render_frame(
+            eng3._pack.scene, eng3._packer.pool_for(cfg, dev),
+            eng3._pack.lights, cam3, eng3.params, env3, cfg)
 
     with capture(raster, "rasterize_binned",
                  lambda bins, th, tw: f"K1 {th}x{tw} tiles"), \
@@ -160,9 +172,10 @@ def main() -> int:
         compare(key, lambda: resolve.select_eval(tri_id, tab, **kw),
                 lambda: resolve.select_eval_ref(tri_id, tab, **kw), eval_check)
 
-    (tid, outf, outh, gates, sky, campos, slights, P, D, irr), _ = \
+    (tid, outf, outh, rec, gates, sky, campos, slights, P, D, irr), _ = \
         captured["K3"]
     consts = shading.pack_shading_consts(campos, slights, P, D, irr)
+    assert rec is None, "demo.lvl is flat: no material plane"
 
     def shade_check(a, b):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
@@ -170,11 +183,82 @@ def main() -> int:
         return (a - b).abs().max().item()
 
     compare("K3", lambda: shading.shade_deferred_fused(
-                tid, outf, outh, gates, sky, campos, slights, P, D, irr),
-            lambda: shading.shade_fused_ref(tid, outf, outh, gates, sky,
+                tid, outf, outh, None, gates, sky, campos, slights, P, D, irr),
+            lambda: shading.shade_fused_ref(tid, outf, outh, None, gates, sky,
                                             consts, P, D, irr is not None),
             shade_check)
     assert (P, D) == (1, 1) and irr is not None and sky is not None
+
+    def launch_counts():
+        return {"K1": raster.K1_LAUNCHES, "K2": resolve.K2_LAUNCHES,
+                "K3": shading.K3_LAUNCHES, "K4": raster.K4_LAUNCHES,
+                "K5": resolve.K5_LAUNCHES, "K7": sampling.K7_LAUNCHES}
+
+    launches = dict.fromkeys(launch_counts(), 0)   # main-path runs only
+
+    def timed_frames(engine, names):
+        """Ten engine frames, every launch count set to 0 just before; the
+        first re-renders the shadow atlas. Adds the counts read just after
+        to ``launches``. Returns (last output, frame ms, per-frame launches
+        of ``names``, this run's launches, peak MiB)."""
+        engine._atlas = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        raster.K1_LAUNCHES = raster.K4_LAUNCHES = resolve.K2_LAUNCHES = 0
+        resolve.K5_LAUNCHES = shading.K3_LAUNCHES = sampling.K7_LAUNCHES = 0
+        frame_ms, per_frame = [], []
+        for _ in range(10):
+            before = launch_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = engine.run_frame(0.0)
+            b.record()
+            b.synchronize()
+            frame_ms.append(a.elapsed_time(b))
+            now = launch_counts()
+            per_frame.append(tuple(now[k] - before[k] for k in names))
+        run = launch_counts()
+        for k, n in run.items():
+            launches[k] += n
+        return (out, frame_ms, per_frame, run,
+                torch.cuda.max_memory_allocated() / 2**20)
+
+    def shade_plain(tid, outf, outh, rec, gates, sky, campos, slights, P, D,
+                    irr):
+        return shading.shade_fused_ref(
+            tid, outf, outh, rec, gates, sky,
+            shading.pack_shading_consts(campos, slights, P, D, irr), P, D,
+            irr is not None)
+
+    def kernel_vs_plain(label, render, chunk=16):
+        """One frame through the kernels and one with every kernel swapped
+        for its plain version: pick ids equal, edge_aware_compare passes."""
+        fast = render()
+        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in (
+                    (raster, "rasterize_binned",
+                     lambda bins, th, tw: raster.rasterize_binned_ref(
+                         bins, th, tw, chunk=chunk)),
+                    (raster, "rasterize_stream", raster.rasterize_stream_ref),
+                    (resolve, "select_eval", resolve.select_eval_ref),
+                    (resolve, "select_eval_stream",
+                     resolve.select_eval_stream_ref),
+                    (shading, "shade_deferred_fused", shade_plain),
+                    (sampling, "windowed_blend", sampling.windowed_blend_ref)):
+                stack.enter_context(_patched(mod, name, fn))
+            plain = render()
+        torch.cuda.synchronize()
+        assert torch.equal(fast.pick_id, plain.pick_id), f"{label}: pick ids differ"
+        assert torch.isfinite(fast.hdr).all(), label
+        res = verify.edge_aware_compare(fast.sdr.cpu().numpy(),
+                                        plain.sdr.cpu().numpy(),
+                                        pick=plain.pick_id.cpu().numpy())
+        assert res["status"] == "pass", (label, res)
+        print(f"{label}: kernel frame vs plain frame: pick ids equal, "
+              f"edge-aware compare {res}", flush=True)
+        return fast
 
     # ---- phase 2: the engine path, 10 frames at 1920x1080 ---------------
     eng = Engine.from_world(
@@ -184,29 +268,9 @@ def main() -> int:
     eng.update()
     eng._ensure_env()
     assert framelib.use_fused_shading(eng.cfg), "fused path not taken"
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    raster.K1_LAUNCHES = resolve.K2_LAUNCHES = shading.K3_LAUNCHES = 0
-    raster.K4_LAUNCHES = resolve.K5_LAUNCHES = 0
-    frame_ms, per_frame = [], []
-    for i in range(10):
-        before = (raster.K1_LAUNCHES, resolve.K2_LAUNCHES,
-                  shading.K3_LAUNCHES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = eng.run_frame(0.0)
-        b.record()
-        b.synchronize()
-        frame_ms.append(a.elapsed_time(b))
-        per_frame.append(tuple(n - m for n, m in zip(
-            (raster.K1_LAUNCHES, resolve.K2_LAUNCHES, shading.K3_LAUNCHES),
-            before)))
-    launches = {"K1": raster.K1_LAUNCHES, "K2": resolve.K2_LAUNCHES,
-                "K3": shading.K3_LAUNCHES, "K4": raster.K4_LAUNCHES,
-                "K5": resolve.K5_LAUNCHES}
-    assert launches["K4"] == launches["K5"] == 0, launches
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    out, frame_ms, per_frame, run, peak_mb = timed_frames(
+        eng, ("K1", "K2", "K3"))
+    assert run["K4"] == run["K5"] == 0, run
     views = eng.cfg.num_shadow_views
     assert per_frame[0] == (1 + views, 1, 1), per_frame[0]
     assert all(p == (1, 1, 1) for p in per_frame[1:]), per_frame
@@ -223,30 +287,10 @@ def main() -> int:
           flush=True)
 
     # ---- phase 3: point + directional frame, kernels vs plain ----------
-    def shade_plain(tid, outf, outh, gates, sky, campos, slights, P, D, irr):
-        return shading.shade_fused_ref(
-            tid, outf, outh, gates, sky,
-            shading.pack_shading_consts(campos, slights, P, D, irr), P, D,
-            irr is not None)
-
     n_before = raster.K1_LAUNCHES
-    fast = render3()
-    torch.cuda.synchronize()
+    kernel_vs_plain(f"demo.lvl 1920x1080, P=1 D=1, {cfg3.num_shadow_views} "
+                    f"shadow views", render3)
     assert raster.K1_LAUNCHES - n_before == 1 + cfg3.num_shadow_views
-    with _patched(raster, "rasterize_binned",
-                  lambda bins, th, tw: raster.rasterize_binned_ref(
-                      bins, th, tw, chunk=16)), \
-            _patched(resolve, "select_eval", resolve.select_eval_ref), \
-            _patched(shading, "shade_deferred_fused", shade_plain):
-        plain = render3()
-    torch.cuda.synchronize()
-    assert torch.equal(fast.pick_id, plain.pick_id), "phase 3 pick ids differ"
-    res = verify.edge_aware_compare(fast.sdr.cpu().numpy(),
-                                    plain.sdr.cpu().numpy(),
-                                    pick=plain.pick_id.cpu().numpy())
-    assert res["status"] == "pass", res
-    print(f"demo.lvl 1920x1080, P=1 D=1, {cfg3.num_shadow_views} shadow views:"
-          f" pick ids equal, edge-aware compare {res}", flush=True)
 
     # ---- phase 4: the high-poly stream path (bench.py's highpoly cell) ---
     cfg4 = RenderConfig(width=1920, height=1080, max_instances=64,
@@ -256,21 +300,16 @@ def main() -> int:
                              camera=demo.build_demo_camera(1920, 1080),
                              cfg=cfg4, device=dev)
 
-    def counts():
-        return (raster.K1_LAUNCHES, raster.K4_LAUNCHES, resolve.K5_LAUNCHES,
-                shading.K3_LAUNCHES)
-
-    def delta(before):
-        return tuple(n - m for n, m in zip(counts(), before))
-
     shadow_k = lambda bins, th, tw: f"K1 shadow K={bins.rows.shape[2]}"  # noqa: E731
     with capture(raster, "rasterize_binned", shadow_k):
         for i in range(8):            # run until the capacities settle
-            cfg_before, atlas_frame, before = eng4.cfg, eng4._atlas is None, counts()
+            cfg_before, atlas_frame = eng4.cfg, eng4._atlas is None
+            k1 = raster.K1_LAUNCHES
             out4 = eng4.run_frame(0.0)
             torch.cuda.synchronize()
             if atlas_frame:
-                assert delta(before)[0] == eng4.cfg.num_shadow_views, delta(before)
+                assert raster.K1_LAUNCHES - k1 == eng4.cfg.num_shadow_views, \
+                    raster.K1_LAUNCHES - k1
             if eng4.cfg == cfg_before and not atlas_frame:
                 break
         else:
@@ -318,29 +357,11 @@ def main() -> int:
     del captured[key1], bins1
 
     # (b) ten engine frames; the first re-renders the shadow atlas
-    eng4._atlas = None
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    raster.K1_LAUNCHES = resolve.K2_LAUNCHES = shading.K3_LAUNCHES = 0
-    raster.K4_LAUNCHES = resolve.K5_LAUNCHES = 0
-    frame_ms, per_frame = [], []
-    for _ in range(10):
-        before = counts()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out4 = eng4.run_frame(0.0)
-        b.record()
-        b.synchronize()
-        frame_ms.append(a.elapsed_time(b))
-        per_frame.append(delta(before))
-    launches4 = {"K1": raster.K1_LAUNCHES, "K2": resolve.K2_LAUNCHES,
-                 "K3": shading.K3_LAUNCHES, "K4": raster.K4_LAUNCHES,
-                 "K5": resolve.K5_LAUNCHES}
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    out4, frame_ms, per_frame, run, peak_mb = timed_frames(
+        eng4, ("K1", "K4", "K5", "K3"))
     views = c4.num_shadow_views
     assert eng4.cfg == c4, "capacities grew during the timed frames"
-    assert launches4["K2"] == 0, launches4
+    assert run["K2"] == 0, run
     assert per_frame[0] == (views, 1, 1, 1), per_frame[0]
     assert all(p == (0, 1, 1, 1) for p in per_frame[1:]), per_frame
     pick = out4.pick_id
@@ -353,36 +374,119 @@ def main() -> int:
           f"{statistics.median(frame_ms[1:]):.3f} ms, peak memory "
           f"{peak_mb:.1f} MiB, {tris / statistics.median(frame_ms[1:]) / 1e3:.3f}"
           f" Mtris/s", flush=True)
-    for k, n in launches4.items():
-        launches[k] += n
 
     # (c) the whole frame through the kernels and through the plain versions
     scene4, lights4 = eng4._pack.scene, eng4._pack.lights
     env4 = eng4._ensure_env()
     cam4 = torch.as_tensor(eng4.camera.to_raw(), device=dev)
+    kernel_vs_plain("high-poly 1920x1080", lambda: framelib.render_frame(
+        scene4, eng4._packer.pool_for(c4, dev), lights4, cam4, eng4.params,
+        env4, c4), chunk=64)
 
-    def render4():
-        return framelib.render_frame(scene4, lights4, cam4, eng4.params, env4,
-                                     c4)
+    # ---- phase 5: the textured frame and the forward overlay ------------
+    # (a) the textured demo world with its point light, 1920x1080
+    eng5 = Engine.from_world(
+        demo.build_demo_world(n_cubes=24, textured_every=2),
+        camera=demo.build_demo_camera(1920, 1080), cfg=RenderConfig(),
+        device=dev)
+    for i in range(8):                # run until the capacities settle
+        cfg_before, atlas_frame = eng5.cfg, eng5._atlas is None
+        out5 = eng5.run_frame(0.0)
+        torch.cuda.synchronize()
+        if eng5.cfg == cfg_before and not atlas_frame:
+            break
+    else:
+        raise AssertionError(f"textured capacities did not settle: {eng5.cfg}")
+    c5 = eng5.cfg
+    assert c5.any_textured and c5.has_forward and framelib.use_fused_shading(c5)
+    assert (c5.num_point_lights, c5.num_directional_lights) == (1, 1)
+    tex_blocks, fwd_tiles = out5.tex_overflow.tolist()
+    assert 0 < tex_blocks and 0 < fwd_tiles <= c5.fwd_tile_capacity
+    print(f"textured demo world 1920x1080: settled after {i + 1} frames: "
+          f"tex_block_capacity {c5.tex_block_capacity} ({tex_blocks} textured "
+          f"blocks wanted of {eng5._tex_block_count()}), fwd_tile_capacity "
+          f"{c5.fwd_tile_capacity} ({fwd_tiles} overlay tiles)", flush=True)
 
-    fast = render4()
+    site = ["?"]
+
+    def tagging(module, name, tag):
+        inner = getattr(module, name)
+
+        def fn(*args, **kw):
+            site[0] = tag
+            try:
+                return inner(*args, **kw)
+            finally:
+                site[0] = "?"
+        return _patched(module, name, fn)
+
+    with tagging(compact, "sample_pool_compacted", "K7 material"), \
+            tagging(resolve, "_forward_overlay_compact", "K7 sprite"), \
+            capture(sampling, "windowed_blend", lambda *a, **k: site[0]), \
+            capture(shading, "shade_deferred_fused", lambda *a, **k: "K3 textured"):
+        eng5.run_frame(0.0)
     torch.cuda.synchronize()
-    with _patched(raster, "rasterize_binned",
-                  lambda bins, th, tw: raster.rasterize_binned_ref(
-                      bins, th, tw, chunk=64)), \
-            _patched(raster, "rasterize_stream", raster.rasterize_stream_ref), \
-            _patched(resolve, "select_eval_stream",
-                     resolve.select_eval_stream_ref), \
-            _patched(shading, "shade_deferred_fused", shade_plain):
-        plain = render4()
-    torch.cuda.synchronize()
-    assert torch.equal(fast.pick_id, plain.pick_id), "phase 4 pick ids differ"
-    res = verify.edge_aware_compare(fast.sdr.cpu().numpy(),
-                                    plain.sdr.cpu().numpy(),
-                                    pick=plain.pick_id.cpu().numpy())
-    assert res["status"] == "pass", res
-    print(f"high-poly 1920x1080 kernel frame vs plain frame: pick ids equal, "
-          f"edge-aware compare {res}", flush=True)
+
+    def blend_check(a, b):
+        assert a.shape == b.shape and torch.equal(a, b), \
+            "K7 differs from the plain version"
+        return (a - b).abs().max().item()
+
+    for key in ("K7 material", "K7 sprite"):
+        (texels, idx, fx, fy, C, cfirst), _ = captured[key]
+        print(f"{key}: pool {tuple(texels.shape)} u8, {idx.shape[0]} taps, "
+              f"C={C}, channel_first={cfirst}", flush=True)
+        compare(key, lambda: sampling.windowed_blend(texels, idx, fx, fy, C,
+                                                     cfirst),
+                lambda: sampling.windowed_blend_ref(texels, idx, fx, fy, C,
+                                                    cfirst), blend_check)
+    (tid5, outf5, outh5, rec5, gates5, sky5, campos5, sl5, P5, D5, irr5), _ = \
+        captured["K3 textured"]
+    assert rec5 is not None and rec5.shape == (9,) + tuple(tid5.shape)
+    consts5 = shading.pack_shading_consts(campos5, sl5, P5, D5, irr5)
+    compare("K3 textured", lambda: shading.shade_deferred_fused(
+                tid5, outf5, outh5, rec5, gates5, sky5, campos5, sl5, P5, D5,
+                irr5),
+            lambda: shading.shade_fused_ref(tid5, outf5, outh5, rec5, gates5,
+                                            sky5, consts5, P5, D5,
+                                            irr5 is not None),
+            shade_check)
+
+    out5, frame_ms, per_frame, run, peak_mb = timed_frames(
+        eng5, ("K1", "K2", "K3", "K7"))
+    views = c5.num_shadow_views
+    assert eng5.cfg == c5, "capacities grew during the timed frames"
+    assert run["K4"] == run["K5"] == 0, run
+    assert per_frame[0][:3] == (views + 2, 1, 1), per_frame[0]
+    assert all(p[:3] == (2, 1, 1) and p[3] >= 2 for p in per_frame[1:]), per_frame
+    pick = out5.pick_id
+    assert out5.sdr.shape == (1080, 1920, 3) and torch.isfinite(out5.hdr).all()
+    assert (pick == 0).any() and len(torch.unique(pick)) > 20
+    print(f"textured engine frame 1920x1080 ({views} shadow views): launches "
+          f"(K1, K2, K3, K7) per frame {per_frame}, frame ms "
+          f"{[round(t, 3) for t in frame_ms]}, first {frame_ms[0]:.3f} ms "
+          f"(re-renders the atlas), median of the steady 9: "
+          f"{statistics.median(frame_ms[1:]):.3f} ms, peak memory "
+          f"{peak_mb:.1f} MiB, objects {len(torch.unique(pick)) - 1}",
+          flush=True)
+
+    scene5, lights5 = eng5._pack.scene, eng5._pack.lights
+    env5 = eng5._ensure_env()
+    cam5 = torch.as_tensor(eng5.camera.to_raw(), device=dev)
+    kernel_vs_plain("textured demo world 1920x1080", lambda: framelib.render_frame(
+        scene5, eng5._packer.pool_for(c5, dev), lights5, cam5, eng5.params,
+        env5, c5))
+
+    # (b) demo.lvl with its light billboard; (c) its forward-only frame
+    cfg5b = eng3.cfg
+    assert cfg5b.has_forward and not cfg5b.any_textured
+    n7 = sampling.K7_LAUNCHES
+    out5b = kernel_vs_plain("demo.lvl 1920x1080 with the overlay",
+                            lambda: render3(cfg5b))
+    assert sampling.K7_LAUNCHES > n7, "the billboard sprite took no K7 tap"
+    assert int(out5b.tex_overflow[1]) > 0
+    kernel_vs_plain("demo.lvl 1920x1080 forward-only", lambda: render3(
+        dataclasses.replace(cfg5b, forward_only=True)))
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),
@@ -391,16 +495,23 @@ def main() -> int:
                "K3": ("shade.cu", "tinyrenderer_tpu/ops/shading.py:208", "K3"),
                "K4": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:812", "K4"),
                "K5": ("select_eval.cu", "tinyrenderer_tpu/ops/resolve.py:647",
-                      "K5")}
+                      "K5"),
+               "K7": ("sampling.cu", "tinyrenderer_tpu/ops/sampling.py:63",
+                      "K7 material")}
+    extra = {"K3": ("textured", "K3 textured"), "K7": ("sprite", "K7 sprite")}
     table_out = []
     for name, (src, replaces, key) in sources.items():
         err = max(v[0] for k, v in results.items() if k.startswith(name))
         _, ms, plain_ms = results[key]
         assert launches[name] > 0, f"{name} never launched on a main path"
-        table_out.append({"name": name, "route": "cuda",
-                          "source": f"tinyrenderer_tpu_torch/csrc/{src}",
-                          "replaces": replaces, "launches": launches[name],
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        entry = {"name": name, "route": "cuda",
+                 "source": f"tinyrenderer_tpu_torch/csrc/{src}",
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        if name in extra:
+            tag, key2 = extra[name]
+            entry[f"{tag}_ms"], entry[f"{tag}_plain_ms"] = results[key2][1:]
+        table_out.append(entry)
     print(json.dumps({"kernels": table_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

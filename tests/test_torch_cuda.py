@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (K1-K5) against their plain versions on
+"""The hand-written CUDA kernels (K1-K5, K7) against their plain versions on
 the card (small shapes; chip_smoke.py covers the 1080p shapes). Marked ``cuda``;
 the ``cuda`` fixture skips them where no CUDA device is present. On the
 card (no JAX there, so without the suite's conftest):
@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from tinyrenderer_tpu_torch.ops import raster, resolve, shading
+from tinyrenderer_tpu_torch.ops import raster, resolve, sampling, shading
 
 
 @pytest.fixture
@@ -111,12 +111,19 @@ def test_stream_select_eval_kernel_matches_plain(cuda, slim, bf16, kmax):
 
 
 @pytest.mark.cuda
-def test_shade_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("textured", [False, True])
+def test_shade_kernel_matches_plain(cuda, textured):
+    """Flat (slim table) and textured (full table + material plane rec_c,
+    use_tex on about half the pixels)."""
     setup, bins = _bins(cuda, 16, 128)
     tid, _ = raster.rasterize_binned(bins, 16, 128)
-    table = torch.rand(setup.rows.shape[0], resolve.ROW_D_SLIM, device=cuda)
+    D = resolve.ROW_D if textured else resolve.ROW_D_SLIM
+    table = torch.rand(setup.rows.shape[0], D, device=cuda)
+    if textured:
+        table[:, -3] = (torch.rand(table.shape[0], device=cuda) > 0.5).float()
     outf, outh = resolve.select_eval(tid, table)
     H, W = tid.shape
+    rec = torch.rand(9, H, W, device=cuda) if textured else None
     lights = shading.ShadingLights(
         point_position=torch.tensor([[0.5, 4.0, -1.0]], device=cuda),
         point_color=torch.tensor([[30.0, 28.0, 25.0]], device=cuda),
@@ -127,9 +134,37 @@ def test_shade_kernel_matches_plain(cuda):
     sky = torch.rand(3, H, W, device=cuda)
     sh = torch.rand(9, 3, device=cuda)
     cam = torch.tensor([-6.0, 5.0, 1.0], device=cuda)
-    a = shading.shade_deferred_fused(tid, outf, outh, gates, sky, cam, lights,
-                                     1, 1, sh)
-    b = shading.shade_fused_ref(tid, outf, outh, gates, sky,
+    n = shading.K3_LAUNCHES
+    a = shading.shade_deferred_fused(tid, outf, outh, rec, gates, sky, cam,
+                                     lights, 1, 1, sh)
+    b = shading.shade_fused_ref(tid, outf, outh, rec, gates, sky,
                                 shading.pack_shading_consts(cam, lights, 1, 1, sh),
                                 1, 1, True)
+    torch.cuda.synchronize()
+    assert shading.K3_LAUNCHES == n + 1
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel_first", [False, True])
+@pytest.mark.parametrize("N", [1, 1000, 65536])
+def test_windowed_blend_kernel_matches_plain(cuda, channel_first, N):
+    """C = 9, indices reaching the pool's last row, fractions at 0 and
+    just below 1: bit-equal to the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(N)
+    R, C = 4000, 9
+    texels = torch.randint(0, 256, (R, 4 * C), generator=g,
+                           dtype=torch.uint8).to(cuda)
+    idx = torch.randint(0, R, (N,), generator=g, dtype=torch.int32)
+    idx[: min(N, 5)] = R - 1
+    fx, fy = torch.rand(N, generator=g), torch.rand(N, generator=g)
+    fx[: min(N, 3)] = 0.0
+    fy[: min(N, 3)] = 1.0 - 2.0 ** -24
+    idx, fx, fy = idx.to(cuda), fx.to(cuda), fy.to(cuda)
+    n = sampling.K7_LAUNCHES
+    a = sampling.windowed_blend(texels, idx, fx, fy, C, channel_first)
+    b = sampling.windowed_blend_ref(texels, idx, fx, fy, C, channel_first)
+    torch.cuda.synchronize()
+    assert sampling.K7_LAUNCHES == n + 1
+    assert a.shape == b.shape == ((C, N) if channel_first else (N, C))
+    assert torch.equal(a, b)

@@ -1,6 +1,8 @@
-"""Port parity for the whole slice: scene packing, the engine path and the
-point + directional frame against the JAX package on the CPU (Pallas
-kernels in interpret mode), plus the refusal of unported scenes."""
+"""Port parity for the whole slice: scene packing, the engine path, the
+point + directional frame, the forward overlay (demo.lvl's light
+billboard), the textured demo world and the forward-only frame against the
+JAX package on the CPU (Pallas kernels in interpret mode), the texture
+capacity monitors, and the refusal of unported configurations."""
 
 import dataclasses
 import os
@@ -15,6 +17,7 @@ from tinyrenderer_tpu.render import frame as jframe
 from tinyrenderer_tpu.render.engine import Engine as JEngine
 from tinyrenderer_tpu.scene import demo
 from tinyrenderer_tpu.utils import verify
+from tinyrenderer_tpu_torch.ops import sampling as tsampling
 from tinyrenderer_tpu_torch.render import frame as tframe
 from tinyrenderer_tpu_torch.render import scene_gpu as tscene
 from tinyrenderer_tpu_torch.render.engine import Engine as TEngine
@@ -84,6 +87,26 @@ def test_engine_frame_matches_jax_engine():
                          t_out.sdr.numpy(), j_out)
 
 
+def _frames(je: JEngine, cfg: RenderConfig):
+    """The JAX frame and the port's frame of one packed scene, pool,
+    lights, camera, params and environment under ``cfg`` (atlas inline)."""
+    env = je._ensure_env()
+    cam = je.camera.to_raw()
+    pool = je._packer.pool_for(cfg)
+    j_out = jframe.compiled_frame(cfg)(
+        je._pack.scene, pool, je._pack.lights, jnp.asarray(cam), je.params,
+        env, None)
+    t_env = tframe.EnvGPU(**{k: torch.from_numpy(np.array(v))
+                             for k, v in env._asdict().items()})
+    t_out = tframe.render_frame(
+        tscene.scene_from_numpy(_host(je._pack.scene), "cpu"),
+        tsampling.pool_from_numpy(vars(pool), "cpu"),
+        tscene.lights_from_numpy(_host(je._pack.lights), "cpu"),
+        torch.from_numpy(cam), torch.from_numpy(np.array(je.params)), t_env,
+        cfg)
+    return t_out, j_out
+
+
 def test_point_and_directional_frame_matches_jax():
     """demo.lvl with the forward overlay switched off: P = 1, D = 1, seven
     shadow views, the atlas rendered inline; both frames get the same
@@ -93,44 +116,108 @@ def test_point_and_directional_frame_matches_jax():
     cfg = dataclasses.replace(je.cfg, has_forward=False)
     assert (cfg.num_point_lights, cfg.num_directional_lights) == (1, 1)
     assert not cfg.any_textured and jframe._use_fused_shading(cfg)
-    env = je._ensure_env()
-    cam = je.camera.to_raw()
-    j_out = jframe.compiled_frame(cfg)(
-        je._pack.scene, je._packer.pool_for(cfg), je._pack.lights,
-        jnp.asarray(cam), je.params, env, None)
-    t_env = tframe.EnvGPU(**{k: torch.from_numpy(np.array(v))
-                             for k, v in env._asdict().items()})
-    t_out = tframe.render_frame(
-        tscene.scene_from_numpy(_host(je._pack.scene), "cpu"),
-        tscene.lights_from_numpy(_host(je._pack.lights), "cpu"),
-        torch.from_numpy(cam), torch.from_numpy(np.array(je.params)), t_env,
-        cfg)
+    t_out, j_out = _frames(je, cfg)
     _assert_frames_agree(t_out.pick_id.numpy(), t_out.depth.numpy(),
                          t_out.sdr.numpy(), j_out)
 
 
-def test_engine_refuses_forward_triangles():
-    """A point light brings a billboard, i.e. forward (overlay) triangles:
-    not ported yet, so the frame raises instead of skipping the overlay."""
-    te = TEngine.from_world(demo.build_demo_world(n_cubes=4),
-                            camera=demo.build_demo_camera(CFG.width,
-                                                          CFG.height),
-                            cfg=CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        te.run_frame(0.0)
-    assert te.cfg.has_forward
+def test_overlay_frame_matches_jax():
+    """demo.lvl as the CLI renders it: the point light's textured billboard
+    is a forward triangle pair, composited by the overlay over the flat
+    deferred frame (slim table: the billboard's material does not make
+    the scene textured). Same inputs on both sides."""
+    je = _jax_engine("level")
+    je.update()
+    cfg = je.cfg
+    assert cfg.has_forward and not cfg.any_textured
+    t_out, j_out = _frames(je, cfg)
+    _assert_frames_agree(t_out.pick_id.numpy(), t_out.depth.numpy(),
+                         t_out.sdr.numpy(), j_out)
+    assert t_out.tex_overflow.tolist() == np.asarray(j_out.tex_overflow).tolist()
+    assert int(t_out.tex_overflow[1]) > 0             # the billboard's tiles
+    assert int(t_out.bin_overflow) == int(j_out.bin_overflow)
+
+
+def test_textured_engine_frame_matches_jax_engine():
+    """The demo world with every second cube textured and its point light
+    (billboard): the full table, the compacted material sample, K3's
+    material plane and the overlay, port engine against JAX engine."""
+    world = lambda: demo.build_demo_world(n_cubes=9, textured_every=2)  # noqa: E731
+    cam = lambda: demo.build_demo_camera(CFG.width, CFG.height)  # noqa: E731
+    je = JEngine.from_world(world(), camera=cam(), cfg=CFG)
+    j_out = je.run_frame(0.0)
+    te = TEngine.from_world(world(), camera=cam(), cfg=CFG, device="cpu")
+    t_out = te.run_frame(0.0)
+    assert te.cfg == je.cfg
+    assert te.cfg.any_textured and te.cfg.has_forward
+    assert te.cfg.num_point_lights == 1
+    _assert_frames_agree(t_out.pick_id.numpy(), t_out.depth.numpy(),
+                         t_out.sdr.numpy(), j_out)
+    assert t_out.tex_overflow.tolist() == np.asarray(j_out.tex_overflow).tolist()
+    assert int(t_out.tex_overflow[0]) > 0             # textured blocks
+
+
+def test_forward_only_frame_matches_jax():
+    """The forward-only frame (BASELINE config 1) of demo.lvl: one raster
+    of the deferred triangles, sampled or flat albedo, N-dot-L."""
+    je = _jax_engine("level")
+    je.update()
+    cfg = dataclasses.replace(je.cfg, forward_only=True)
+    t_out, j_out = _frames(je, cfg)
+    _assert_frames_agree(t_out.pick_id.numpy(), t_out.depth.numpy(),
+                         t_out.sdr.numpy(), j_out)
+    assert int(t_out.shadow_blocks) == 0
 
 
 @pytest.mark.parametrize("change,item", [
     (dict(fused_shading=False), "item 12"),
     (dict(render_scale_pct=50), "item 12"),
-    (dict(any_textured=True, has_forward=False), "item 11"),
+    (dict(fused_resolve=True), "item 12"),
     (dict(sky_block_capacity=256, has_forward=False, any_textured=False),
      "item 14"),
+    (dict(fused_resolve=True, forward_only=True), "item 12"),
+    (dict(native_texture_pool=True), "item 14"),
 ])
 def test_render_frame_refuses_unported_branches(change, item):
     with pytest.raises(NotImplementedError, match=item):
         tframe.check_ported(dataclasses.replace(CFG, **change))
+
+
+def test_pool_for_refuses_native_pool():
+    te = TEngine(cfg=CFG, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        te._packer.pool_for(dataclasses.replace(CFG, native_texture_pool=True),
+                            "cpu")
+
+
+def test_engine_grows_texture_capacities():
+    """The tex monitor (textured 8x128 blocks) and the fwdtex monitor
+    (overlay tiles): one frame of the textured world at capacity 1 grows
+    tex_block_capacity straight to the block count (dense sampling, the
+    reference's rule at >= half the blocks); the rules at 1920x1080:
+    12.5% headroom in 256-block steps, the jump to the block count, and
+    the shrink after SHRINK_AFTER low frames."""
+    te = TEngine.from_world(
+        demo.build_demo_world(n_cubes=9, textured_every=2),
+        camera=demo.build_demo_camera(CFG.width, CFG.height),
+        cfg=dataclasses.replace(CFG, tex_block_capacity=1), device="cpu")
+    for _ in range(3):          # an atlas-monitor growth ends a frame early
+        out = te.run_frame(0.0)
+        if te.cfg.tex_block_capacity > 1:
+            break
+    assert int(out.tex_overflow[0]) > 1
+    assert te.cfg.tex_block_capacity == te._tex_block_count() == 32
+    te.cfg = dataclasses.replace(te.cfg, width=1920, height=1080)
+    nb = te._tex_block_count()
+    assert nb == 136 * 15
+    te._apply_monitor_values(("tex", "fwdtex"), [300, 20])
+    assert (te.cfg.tex_block_capacity, te.cfg.fwd_tile_capacity) == (512, 256)
+    te._apply_monitor_values(("tex", "fwdtex"), [1000, 3])
+    assert te.cfg.tex_block_capacity == nb
+    for _ in range(te.SHRINK_AFTER):
+        te._apply_monitor_values(("tex", "fwdtex"), [10, 3])
+    # fwdtex would shrink to 256 blocks, which is where it stands
+    assert (te.cfg.tex_block_capacity, te.cfg.fwd_tile_capacity) == (512, 256)
 
 
 def test_engine_grows_overflowed_capacities():

@@ -17,6 +17,7 @@ from tinyrenderer_tpu.render.engine import Engine as JEngine
 from tinyrenderer_tpu.scene import demo
 from tinyrenderer_tpu.utils import verify
 from tinyrenderer_tpu_torch.ops import raster as traster
+from tinyrenderer_tpu_torch.ops import sampling as tsampling
 from tinyrenderer_tpu_torch.render import frame as tframe
 from tinyrenderer_tpu_torch.render import scene_gpu as tscene
 from tinyrenderer_tpu_torch.render.engine import Engine as TEngine
@@ -66,6 +67,7 @@ def test_stream_frame_matches_jax_engine(scene):
                              for k, v in env._asdict().items()})
     t_out = tframe.render_frame(
         tscene.scene_from_numpy(_host(je._pack.scene), "cpu"),
+        tsampling.pool_from_numpy(vars(je._packer.pool_for(cfg)), "cpu"),
         tscene.lights_from_numpy(_host(je._pack.lights), "cpu"),
         torch.from_numpy(je.camera.to_raw()),
         torch.from_numpy(np.array(je.params)), t_env, cfg)
@@ -95,7 +97,8 @@ def test_stream_raster_off_takes_scatter_bins():
     cam = torch.as_tensor(te.camera.to_raw())
     atlas, _, _ = tframe.render_shadow_atlas(te._pack.scene, te._pack.lights,
                                              te.cfg)
-    outs = [tframe.render_frame(te._pack.scene, te._pack.lights, cam,
+    pool = te._packer.pool_for(te.cfg, "cpu")
+    outs = [tframe.render_frame(te._pack.scene, pool, te._pack.lights, cam,
                                 te.params, env,
                                 dataclasses.replace(te.cfg, stream_raster=s),
                                 atlas)

@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from tinyrenderer_tpu_torch import kernels
-from tinyrenderer_tpu_torch.ops import raster, resolve, shading
+from tinyrenderer_tpu_torch.ops import raster, resolve, sampling, shading
 
 PORT_MODULES = [
     "tinyrenderer_tpu_torch", "tinyrenderer_tpu_torch.kernels",
@@ -55,8 +55,13 @@ def test_cpu_tensors_take_plain_versions():
     lights = shading.ShadingLights(*(torch.ones(1, 3),) * 4,
                                    dir_viewproj=torch.eye(4)[None])
     hdr = shading.shade_deferred_fused(
-        torch.zeros((8, 16), dtype=torch.int32), outf, outh,
+        torch.zeros((8, 16), dtype=torch.int32), outf, outh, None,
         torch.ones((2, 8, 16)), None, torch.zeros(3), lights, 1, 1, None)
     assert hdr.shape == (3, 8, 16) and torch.isfinite(hdr).all()
+    tap = sampling.windowed_blend(torch.zeros((4, 36), dtype=torch.uint8),
+                                  torch.arange(4, dtype=torch.int32),
+                                  torch.zeros(4), torch.zeros(4), 9)
+    assert tap.shape == (4, 9) and (tap == 0).all()
     assert kernels._lib is None
-    assert (raster.K1_LAUNCHES, resolve.K2_LAUNCHES, shading.K3_LAUNCHES) == (0, 0, 0)
+    assert (raster.K1_LAUNCHES, resolve.K2_LAUNCHES, shading.K3_LAUNCHES,
+            sampling.K7_LAUNCHES) == (0, 0, 0, 0)

@@ -2,7 +2,10 @@
 //
 // Replaces the TPU kernel tinyrenderer_tpu/ops/shading.py::_shade_kernel
 // (launcher shade_deferred_fused). Per pixel: normalize the geometric
-// normal, take the flat material (albedo, roughness, metalness), evaluate
+// normal, take the material -- the flat params, or on textured scenes
+// (a material plane given) the sampled record where use_tex is set, with
+// the tangent-space normal mapped through the normalized TBN frame --
+// evaluate
 // Cook-Torrance per point light (1/d^2 falloff) and per directional light,
 // each gated on shadow > 0, add SH-9 ambient with roughness Fresnel,
 // composite the sky over the background, and write (3, H, W) HDR.
@@ -19,8 +22,7 @@
 // the 3-term dot products and the GGX denominator (whose cancellation at
 // low roughness amplifies any rounding difference) fuse exactly where the
 // reference's CPU build fuses them; everything else rounds per operation.
-// The textured material plane of the reference (has_rec) is not ported:
-// the frame refuses textured scenes.
+// The material plane adds 9 planes (36 bytes) a pixel on textured scenes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +86,8 @@ template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 shade_kernel(const float* __restrict__ c, const int* __restrict__ tri_id,
              const float* __restrict__ outf, const void* __restrict__ outh_raw,
-             const float* __restrict__ gates, const float* __restrict__ sky,
+             const float* __restrict__ rec, const float* __restrict__ gates,
+             const float* __restrict__ sky,
              float* __restrict__ hdr_out, int H, int W, int cf, int ch,
              int num_point, int num_dir, int has_ibl) {
   const int x = blockIdx.x * kThreads + threadIdx.x;
@@ -110,6 +113,25 @@ shade_kernel(const float* __restrict__ c, const int* __restrict__ tri_id,
     for (int k = 0; k < 3; ++k) s.alb[k] = hv(a0 + k);
     s.rough = hv(a0 + 3);
     s.metal = hv(a0 + 4);
+    if (rec && hv(14) > 0.5f) {   // full layout: h[14] is the use_tex flag
+      float tx = hv(3), ty = hv(4), tz = hv(5), bx = hv(6), by = hv(7),
+            bz = hv(8);
+      norm3(tx, ty, tz);
+      norm3(bx, by, bz);
+      const float ntx = __fmul_rn(rec[4 * HW + o], 2.0f) - 1.0f;
+      const float nty = __fmul_rn(rec[5 * HW + o], 2.0f) - 1.0f;
+      const float ntz = __fmul_rn(rec[6 * HW + o], 2.0f) - 1.0f;
+      float mx = dot3(ntx, nty, ntz, tx, bx, s.nx);
+      float my = dot3(ntx, nty, ntz, ty, by, s.ny);
+      float mz = dot3(ntx, nty, ntz, tz, bz, s.nz);
+      norm3(mx, my, mz);
+      s.nx = mx;
+      s.ny = my;
+      s.nz = mz;
+      for (int k = 0; k < 3; ++k) s.alb[k] = rec[k * HW + o];
+      s.rough = rec[7 * HW + o];
+      s.metal = rec[8 * HW + o];
+    }
     const float px = outf[o], py = outf[HW + o], pz = outf[2 * HW + o];
     s.vx = c[0] - px;
     s.vy = c[1] - py;
@@ -170,20 +192,22 @@ shade_kernel(const float* __restrict__ c, const int* __restrict__ tri_id,
 }  // namespace
 
 extern "C" int tr_shade(const void* consts, const void* tri_id,
-                        const void* outf, const void* outh, const void* gates,
-                        const void* sky, void* hdr, int H, int W, int cf,
-                        int ch, int h_bf16, int num_point, int num_dir,
-                        int has_ibl, void* stream) {
+                        const void* outf, const void* outh, const void* rec,
+                        const void* gates, const void* sky, void* hdr, int H,
+                        int W, int cf, int ch, int h_bf16, int num_point,
+                        int num_dir, int has_ibl, void* stream) {
   dim3 grid((W + kThreads - 1) / kThreads, H);
   if (h_bf16)
     shade_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)consts, (const int*)tri_id, (const float*)outf, outh,
-        (const float*)gates, (const float*)sky, (float*)hdr, H, W, cf, ch,
+        (const float*)rec, (const float*)gates, (const float*)sky,
+        (float*)hdr, H, W, cf, ch,
         num_point, num_dir, has_ibl);
   else
     shade_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)consts, (const int*)tri_id, (const float*)outf, outh,
-        (const float*)gates, (const float*)sky, (float*)hdr, H, W, cf, ch,
+        (const float*)rec, (const float*)gates, (const float*)sky,
+        (float*)hdr, H, W, cf, ch,
         num_point, num_dir, has_ibl);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,13 @@
 """Build and load the hand-written Hopper kernels.
 
 The CUDA sources under ``csrc/`` (K1 + K4 ``raster.cu``, K2 + K5
-``select_eval.cu``, K3 ``shade.cu``) have a plain C interface. They are
-compiled with one ``nvcc`` call into ``build/kernels/libtr_kernels_<hash>.so``
-(the hash covers the sources and the flags, so an edited source rebuilds)
-and loaded with ``ctypes``. The build happens on the first CUDA launch,
-never at import, and never falls back: a failed build raises.
+``select_eval.cu``, K3 ``shade.cu``, K7 ``sampling.cu``) have a plain C
+interface. Each is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into
+``build/kernels/libtr_kernels_<hash>.so`` (the hash covers the sources and
+the flags, so an edited source rebuilds), loaded with ``ctypes``. The
+build happens on the first CUDA launch, never at import, and never falls
+back: a failed build raises.
 
 Every entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.
@@ -24,14 +26,15 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("raster.cu", "select_eval.cu", "shade.cu")
+SOURCES = ("raster.cu", "select_eval.cu", "shade.cu", "sampling.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # no --use_fast_math: sqrt and division stay IEEE round-to-nearest.
 # -fmad=false: no multiply-add is contracted behind the source's back; the
 # kernels write every fused multiply-add they want as __fmaf_rn, in the
 # places the plain versions spell out with ops/fp.py fma
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                     "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,10 +53,12 @@ SIGNATURES = {
     # tiles_x, tile_h, tile_w, kb, nb, stream
     "tr_select_eval_stream": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _P),
-    # consts, tri_id, outf, outh, gates, sky, hdr, H, W, cf, ch, h_bf16,
-    # num_point, num_dir, has_ibl, stream
-    "tr_shade": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                 _I, _P),
+    # consts, tri_id, outf, outh, rec, gates, sky, hdr, H, W, cf, ch,
+    # h_bf16, num_point, num_dir, has_ibl, stream
+    "tr_shade": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 _I, _I, _P),
+    # texels, idx, fx, fy, out, R, C, N, channel_first, stream
+    "tr_windowed_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -76,19 +81,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtr_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _check_nvcc(cmd: list, stdout: str, stderr: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{stdout}"
+                           f"\n{stderr}")
+
+
 def build() -> Path:
     """Compile the kernels unless the hashed library exists; return it."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in jobs]
+    outs = [p.communicate() for p in procs]       # wait for every compile
+    for cmd, p, (so, se) in zip(jobs, procs, outs):
+        _check_nvcc(cmd, so, se, p.returncode)
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    res = subprocess.run(link, capture_output=True, text=True)
+    _check_nvcc(link, res.stdout, res.stderr, res.returncode)
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     return out
 

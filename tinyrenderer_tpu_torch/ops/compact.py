@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from . import sampling
+
 I32 = torch.int32
 
 _BLOCK_H = 8
@@ -84,3 +86,42 @@ def scatter_blocks(work: torch.Tensor, plan: BlockPlan,
     mask = (plan.inv >= 0).reshape((-1,) + (1,) * (work.ndim - 1))
     return torch.where(mask, out,
                        torch.full((), fill, dtype=out.dtype, device=out.device))
+
+
+def _blocks_needed(need: torch.Tensor, bh: int, bw: int) -> torch.Tensor:
+    """(N,) bool: the (bh, bw) blocks of ``need`` (H, W) with a set pixel."""
+    return to_blocks(need, bh, bw).flatten(1).any(dim=1)
+
+
+def sample_pool_compacted(pool: sampling.TexturePoolGPU, rec: torch.Tensor,
+                          uv: torch.Tensor, level_f: torch.Tensor,
+                          need: torch.Tensor,
+                          capacity: int, filter: str = "dithered",
+                          wrap: bool = True
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mip-filtered material sample gathered only on the blocks where
+    ``need`` (H, W) is set: every pixel of a selected block is sampled
+    (equal to the dense sampler there), the others return 0. rec (H, W)
+    i32, uv (H, W, 2), level_f (H, W) -> ((H, W, C), () i32 blocks that
+    wanted work). ``capacity`` <= 0 or >= the block count samples densely
+    and still reports the count."""
+    H, W = need.shape
+    dims = block_dims(H, W)
+    n_blocks = 0 if dims is None else (H // dims[0]) * (W // dims[1])
+    if dims is None or capacity <= 0 or capacity >= n_blocks:
+        out = sampling.sample_pool_mip(pool, rec, uv, level_f, wrap=wrap,
+                                       filter=filter)
+        needed = (torch.zeros((), dtype=I32, device=need.device)
+                  if dims is None
+                  else _blocks_needed(need, *dims).sum(dtype=I32))
+        return out, needed
+    bh, bw = dims
+    plan = plan_blocks(_blocks_needed(need, bh, bw), capacity)
+    # blocks are origin-aligned multiples of 4, so the sampler's Bayer
+    # thresholds tile exactly as on the dense grid
+    out_c = sampling.sample_pool_mip(
+        pool, gather_blocks(to_blocks(rec, bh, bw), plan),
+        gather_blocks(to_blocks(uv, bh, bw), plan),
+        gather_blocks(to_blocks(level_f, bh, bw), plan), wrap=wrap,
+        filter=filter)
+    return from_blocks(scatter_blocks(out_c, plan), H, W), plan.needed

@@ -24,7 +24,7 @@ def tone_map(hdr: torch.Tensor, tone_type: torch.Tensor,
     return (gamma * 255.0 + 0.5).clamp(0.0, 255.0).to(torch.uint8)
 
 
-def _upsample_axis(img: torch.Tensor, s: int, axis: int) -> torch.Tensor:
+def upsample_axis(img: torch.Tensor, s: int, axis: int) -> torch.Tensor:
     """Exact integer-factor bilinear upsample along one axis (half-pixel
     centres, clamp at the edge): ``s`` phase-wise weighted adds of the
     image and its one-step shifts, interleaved."""
@@ -48,5 +48,5 @@ def _upsample_axis(img: torch.Tensor, s: int, axis: int) -> torch.Tensor:
 def upsample_bilinear_int_cf(img: torch.Tensor, sy: int, sx: int
                              ) -> torch.Tensor:
     """(C, H, W) -> (C, H * sy, W * sx) bilinear upsample, integer factors."""
-    out = _upsample_axis(img, sy, 1) if sy > 1 else img
-    return _upsample_axis(out, sx, 2) if sx > 1 else out
+    out = upsample_axis(img, sy, 1) if sy > 1 else img
+    return upsample_axis(out, sx, 2) if sx > 1 else out

@@ -21,8 +21,8 @@ from dataclasses import dataclass
 import torch
 
 from .. import kernels
-from . import raster
-from .fp import plane
+from . import compact, post, raster, sampling
+from .fp import fma, lerp, plane, sqrt
 
 F32 = torch.float32
 I32 = torch.int32
@@ -240,3 +240,195 @@ def select_eval_stream(tri_id: torch.Tensor, sbins, table: torch.Tensor,
     kernels.check("tr_select_eval_stream", code)
     K5_LAUNCHES += 1
     return outf, outh
+
+
+# ---- resolved attributes (the two-pass forward-only frame, the overlay) ----
+
+_AX, _AY, _AC = 3, 3 + N_ATTR, 3 + 2 * N_ATTR     # full-layout plane blocks
+_PLANES = 3 * (N_ATTR + 1)
+CONST_FLAT, CONST_REC, CONST_OBJ = _PLANES, _PLANES + 6, _PLANES + 7
+
+
+@dataclass
+class ResolvedAttrs:
+    """Per-pixel interpolated attributes + per-triangle constants."""
+
+    world: torch.Tensor       # (..., 3)
+    uv: torch.Tensor          # (..., 2)
+    normal: torch.Tensor      # (..., 3) geometric, normalized
+    tangent: torch.Tensor     # (..., 3)
+    bitangent: torch.Tensor   # (..., 3)
+    flat: torch.Tensor        # (..., 6) material flat params
+    record: torch.Tensor      # (...) i32 composite material record
+    object_id: torch.Tensor   # (...) i32 (0 = none)
+    valid: torch.Tensor       # (...) bool
+
+
+def _safe_normalize(v: torch.Tensor) -> torch.Tensor:
+    """v / max(|v|, 1e-12) over the last (3-wide) axis; the squared length
+    summed x, y, z with fused multiply-adds, as the reference's reduction."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    n = sqrt(fma(z, z, fma(y, y, x * x))).clamp(min=1e-12)
+    return v / n[..., None]
+
+
+def resolve_attrs_from_sel_at(tri_id: torch.Tensor, sel: torch.Tensor,
+                              px: torch.Tensor,
+                              py: torch.Tensor) -> ResolvedAttrs:
+    """Evaluate selected full-layout table rows sel (..., 53) at explicit
+    pixel centres px, py (broadcastable to (..., 1))."""
+    denom = plane(sel[..., 0:1], sel[..., 1:2], sel[..., 2:3], px, py)
+    denom = torch.where(denom.abs() > 1e-20, denom,
+                        torch.ones((), device=sel.device))
+    a = plane(sel[..., _AX:_AY], sel[..., _AY:_AC], sel[..., _AC:_PLANES],
+              px, py) / denom
+    valid = tri_id >= 0
+    return ResolvedAttrs(
+        world=a[..., 0:3], uv=a[..., 3:5], normal=_safe_normalize(a[..., 5:8]),
+        tangent=_safe_normalize(a[..., 8:11]),
+        bitangent=_safe_normalize(a[..., 11:14]),
+        flat=sel[..., CONST_FLAT:CONST_FLAT + 6],
+        record=torch.round(sel[..., CONST_REC]).to(I32),
+        object_id=torch.where(valid, torch.round(sel[..., CONST_OBJ]).to(I32),
+                              0),
+        valid=valid)
+
+
+def _attrs_from_split(tri_id: torch.Tensor, outf_c: torch.Tensor,
+                      outh_c: torch.Tensor) -> ResolvedAttrs:
+    """ResolvedAttrs (channel-last fields) from select + eval's split
+    channel-first outputs, either layout, outh bf16 or f32. The reference
+    assembles its all-f32 single output with ``_attrs_from_single``; the
+    port's K2 / K5 always write the split planes (outh in f32 when
+    ``bf16`` is off), whose channels are the same values."""
+    valid = tri_id >= 0
+    f = outf_c.permute(1, 2, 0)
+    h = outh_c.to(F32).permute(1, 2, 0)
+    if outf_c.shape[0] == 4:         # slim: no uv, tangent frame or record
+        n = _safe_normalize(h[..., 0:3])
+        return ResolvedAttrs(
+            world=f[..., 0:3], uv=torch.zeros(tri_id.shape + (2,),
+                                              device=f.device),
+            normal=n, tangent=n, bitangent=n, flat=h[..., 3:9],
+            record=torch.zeros_like(tri_id),
+            object_id=torch.where(valid, torch.round(f[..., 3]).to(I32), 0),
+            valid=valid)
+    return ResolvedAttrs(
+        world=f[..., 0:3], uv=f[..., 3:5], normal=_safe_normalize(h[..., 0:3]),
+        tangent=_safe_normalize(h[..., 3:6]),
+        bitangent=_safe_normalize(h[..., 6:9]), flat=h[..., 9:15],
+        record=torch.round(f[..., 5]).to(I32),
+        object_id=torch.where(valid, torch.round(f[..., 6]).to(I32), 0),
+        valid=valid)
+
+
+def resolve_attrs_pallas(tri_id: torch.Tensor, table: torch.Tensor,
+                         bf16: bool = False) -> ResolvedAttrs:
+    """ResolvedAttrs through select + eval over dense bins (K2)."""
+    return _attrs_from_split(tri_id, *select_eval(tri_id, table, bf16))
+
+
+def resolve_attrs_stream(tri_id: torch.Tensor, sbins, table: torch.Tensor,
+                         tile_h: int, tile_w: int, kmax: int,
+                         bf16: bool = False) -> ResolvedAttrs:
+    """ResolvedAttrs through select + eval over CSR stream bins (K5)."""
+    return _attrs_from_split(tri_id, *select_eval_stream(
+        tri_id, sbins, table, tile_h, tile_w, kmax, bf16))
+
+
+# ---- forward overlay (light billboards, gizmos) ----------------------------
+
+def _forward_overlay_compact(tri_id: torch.Tensor, bins, table: torch.Tensor,
+                             pool, tile_h: int, tile_w: int, capacity: int,
+                             texture_filter: str, fs: int):
+    """The overlay resolved on the compacted tiles that bin a forward
+    triangle: (plan, cap, color (cap, P, 3), alpha (cap, P), object_id
+    (cap, P) i32, valid (cap, P) bool), P = tile_h * tile_w.
+
+    The reference selects each pixel's table row with a one-hot product
+    over its tile's bin; the winner is always in that bin, so the port
+    gathers ``table[tri_id]`` (zeros for background pixels and padded
+    slots, as the empty one-hot sum). Sprites sample at 1/``fs`` rate with
+    a tile-local mip level and a bilinear upsample (edge-clamped, the
+    values of the reference's renormalized ``jax.image.resize``)."""
+    ty, tx, _ = bins.ids.shape
+    T = table.shape[0]
+    n_tiles, P = ty * tx, tile_h * tile_w
+    cap = capacity if 0 < capacity < n_tiles else n_tiles
+    plan = compact.plan_blocks((bins.counts > 0).reshape(n_tiles), cap)
+    tid = compact.gather_blocks(compact.to_blocks(tri_id, tile_h, tile_w),
+                                plan).reshape(cap, P)
+    live = plan.slots >= 0
+    sel = table[tid.clamp(0, T - 1).long()]                   # (cap, P, D)
+    sel = torch.where((live[:, None] & (tid >= 0))[..., None], sel,
+                      torch.zeros((), device=sel.device))
+    slot = plan.slots.clamp(min=0)
+    p = torch.arange(P, device=tid.device)
+    px = ((slot % tx * tile_w)[:, None] + p % tile_w).to(F32) + 0.5
+    py = ((slot // tx * tile_h)[:, None] + p // tile_w).to(F32) + 0.5
+    r = resolve_attrs_from_sel_at(tid, sel, px[..., None], py[..., None])
+
+    use_tex = r.flat[..., 5] > 0.5
+    uv_t = r.uv.reshape(cap, tile_h, tile_w, 2)[:, ::fs, ::fs]
+    rec_t = r.record.reshape(cap, tile_h, tile_w)[:, ::fs, ::fs]
+    lvl = sampling.mip_level_from_uv(uv_t, pool.level_sizes[0])
+    tex = sampling.sample_pool_mip(pool, rec_t, uv_t, lvl,
+                                   filter=texture_filter)    # (cap, h, w, C)
+    if fs > 1:
+        tex = post.upsample_axis(post.upsample_axis(tex, fs, 1), fs, 2)
+    tex = tex.reshape(cap, P, -1)
+    color = torch.where(use_tex[..., None], tex[..., :3], r.flat[..., 0:3])
+    alpha = torch.where(use_tex, tex[..., 3], 1.0) * r.valid.to(F32)
+    oid = torch.where(r.valid, r.object_id, 0)
+    return plan, cap, color, alpha, oid, r.valid
+
+
+def forward_overlay_tiles(tri_id: torch.Tensor, bins, table: torch.Tensor,
+                          pool, tile_h: int, tile_w: int, capacity: int,
+                          texture_filter: str = "dithered", fs: int = 2):
+    """The compacted overlay scattered back to image shape: (color (H, W,
+    3), alpha (H, W), object_id (H, W) i32, valid (H, W) bool, needed ()
+    i32 occupied-tile monitor). Tiles without a forward triangle get 0."""
+    H, W = tri_id.shape
+    plan, cap, color, alpha, oid, valid = _forward_overlay_compact(
+        tri_id, bins, table, pool, tile_h, tile_w, capacity, texture_filter,
+        fs)
+
+    def scatter(x):
+        x = x.reshape((cap, tile_h, tile_w) + x.shape[2:])
+        return compact.from_blocks(compact.scatter_blocks(x, plan), H, W)
+
+    return (scatter(color), scatter(alpha), scatter(oid), scatter(valid),
+            plan.needed)
+
+
+def forward_overlay_compose(hdr: torch.Tensor, pick: torch.Tensor,
+                            tri_id: torch.Tensor, bins, table: torch.Tensor,
+                            pool, tile_h: int, tile_w: int, capacity: int,
+                            texture_filter: str = "dithered", fs: int = 2):
+    """Composite the overlay into (hdr (H, W, 3), pick (H, W) i32) on its
+    compacted tiles -> (hdr, pick, needed () i32).
+
+    The reference walks the slots with a scan of per-tile read-modify-
+    writes; here one gather reads every slot's tile and one scatter writes
+    it back. A padded slot (no tile) points at tile 0 in the plan: it
+    would write back tile 0's old pixels over a live tile 0's composite,
+    so its pixels go to a spare row past the image instead. Outside the
+    occupied tiles hdr and pick pass through untouched."""
+    H, W = tri_id.shape
+    ty, tx, _ = bins.ids.shape
+    plan, cap, color, alpha, oid, valid = _forward_overlay_compact(
+        tri_id, bins, table, pool, tile_h, tile_w, capacity, texture_filter,
+        fs)
+    slot = plan.slots.clamp(min=0).long()
+    dev = hdr.device
+    ys = (slot // tx * tile_h)[:, None] + torch.arange(tile_h, device=dev)
+    xs = (slot % tx * tile_w)[:, None] + torch.arange(tile_w, device=dev)
+    lin = (ys[:, :, None] * W + xs[:, None, :]).reshape(cap, -1)
+    lin = torch.where((plan.slots >= 0)[:, None], lin, H * W)
+    hdr_f = torch.cat([hdr.reshape(H * W, 3), hdr.new_zeros(1, 3)])
+    pick_f = torch.cat([pick.reshape(H * W), pick.new_zeros(1)])
+    hdr_f[lin] = lerp(hdr_f[lin], color, alpha[..., None])
+    pick_f[lin] = torch.where(valid & (alpha > 0.5), oid, pick_f[lin])
+    return (hdr_f[:H * W].reshape(H, W, 3), pick_f[:H * W].reshape(H, W),
+            plan.needed)

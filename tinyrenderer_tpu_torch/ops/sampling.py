@@ -1,14 +1,385 @@
-"""Cubemap sampling (the cube-map part of ops/sampling.py): face
-addressing, bilinear samples of f32 cubes, and the windowed-RGBE display
-cube the sky samples with one gather per tap."""
+"""Texture sampling (port of ops/sampling.py): the pooled material
+textures and the cubemaps.
+
+Material textures live in one static pool (:class:`TexturePoolGPU`): level
+``l`` of record ``t`` is a contiguous region of a flattened texel array,
+row-major or in Morton order, so any (record, level, y, x) sample is one
+gather. A *windowed* pool row carries the texel and its +x, +y and +x+y
+neighbours, so a bilinear tap is one row. The default pool is windowed
+u8 with 9 channels; its taps go through kernel K7 (``csrc/sampling.cu``):
+row gather, decode and bilinear blend in one pass.
+
+Cubemaps are (6, S, S, C) with the face order +X, -X, +Y, -Y, +Z, -Z.
+
+The native-size pool (``cfg.native_texture_pool``) is not ported yet
+(ROADMAP.md queue 1 item 14): ``ScenePacker.pool_for`` refuses it.
+"""
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import kernels
+from .fp import fma, lerp
+
 F32 = torch.float32
 I32 = torch.int32
+U8 = torch.uint8
+
+K7_LAUNCHES = 0    # CUDA launches of the windowed blend kernel
+
+
+@dataclass
+class TexturePoolGPU:
+    """Flattened mip-pyramid pool on a device; every field but ``texels``
+    is static layout."""
+
+    texels: torch.Tensor          # (n * texels_per_tex, C | 4C) f32 or u8
+    level_offsets: tuple          # per-level row offset inside a record
+    level_sizes: tuple            # per-level edge length
+    texels_per_tex: int
+    windowed: bool = False        # rows hold [self | +x | +y | +x+y]
+    base_channels: int = 4        # C
+    u8: bool = False              # texels stored as round(255 * value)
+    morton: bool = False          # Z-curve texel order inside a level
+
+    def _decode(self, rows: torch.Tensor) -> torch.Tensor:
+        return rows.to(F32) * (1.0 / 255.0) if self.u8 else rows
+
+    def _texel_index(self, yi: torch.Tensor, xi: torch.Tensor,
+                     sizes: torch.Tensor) -> torch.Tensor:
+        return _morton2(yi, xi) if self.morton else yi * sizes + xi
+
+
+def _part1by1(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 16 bits of v (int32 or int64) to even bit positions."""
+    v = v & 0xFFFF
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def _morton2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Interleave (y, x) -> Z-curve index (power-of-two level sizes)."""
+    return (_part1by1(y) << 1) | _part1by1(x)
+
+
+def window_rows(img: np.ndarray, wrap: bool = True) -> np.ndarray:
+    """(..., s, s, C) -> (..., s, s, 4C): [self | +x | +y | +x+y]."""
+    if wrap:
+        right = np.roll(img, -1, axis=-2)
+        down = np.roll(img, -1, axis=-3)
+        diag = np.roll(down, -1, axis=-2)
+    else:
+        right = np.concatenate([img[..., :, 1:, :], img[..., :, -1:, :]], -2)
+        down = np.concatenate([img[..., 1:, :, :], img[..., -1:, :, :]], -3)
+        diag = np.concatenate([down[..., :, 1:, :], down[..., :, -1:, :]], -2)
+    return np.concatenate([img, right, down, diag], axis=-1)
+
+
+def pack_texture_pool(mips: list, windowed: bool = False, wrap: bool = True,
+                      u8: bool = False, morton: bool = False,
+                      device="cpu") -> TexturePoolGPU:
+    """Flatten host mips [(n, s, s, C) per level] into one pool on
+    ``device``. ``u8`` stores ``round(255 * v)`` (v in [0, 1]); ``morton``
+    stores each level in Z-curve order (power-of-two sizes only)."""
+    n = mips[0].shape[0]
+    base_channels = mips[0].shape[-1]
+    if windowed:
+        mips = [window_rows(m, wrap) for m in mips]
+    channels = mips[0].shape[-1]
+    level_sizes = tuple(int(m.shape[1]) for m in mips)
+    if morton and any(s & (s - 1) for s in level_sizes):
+        raise ValueError("morton layout needs power-of-two level sizes")
+    offsets = tuple(int(sum(s * s for s in level_sizes[:i]))
+                    for i in range(len(level_sizes)))
+    tpt = sum(s * s for s in level_sizes)
+    flat = np.zeros((n, tpt, channels), np.float32)
+    for m, s, off in zip(mips, level_sizes, offsets):
+        region = m.reshape(n, s * s, channels)
+        if morton:
+            ys, xs = np.mgrid[0:s, 0:s]
+            z = _morton2(torch.from_numpy(ys.reshape(-1)),
+                         torch.from_numpy(xs.reshape(-1))).numpy()
+            reordered = np.empty_like(region)
+            reordered[:, z] = region          # row-major texel -> Z slot
+            region = reordered
+        flat[:, off:off + s * s] = region
+    flat = flat.reshape(n * tpt, channels)
+    if u8:
+        flat = np.clip(flat * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return TexturePoolGPU(torch.as_tensor(flat, device=device), offsets,
+                          level_sizes, tpt, windowed, base_channels, u8,
+                          morton)
+
+
+def pool_from_numpy(fields: dict, device) -> TexturePoolGPU:
+    """TexturePoolGPU from host fields named as its own: the port's pack,
+    or the JAX pool's ``vars()`` (texels fetched with ``np.asarray``)."""
+    return TexturePoolGPU(
+        texels=torch.as_tensor(np.array(fields["texels"]), device=device),
+        level_offsets=tuple(int(o) for o in fields["level_offsets"]),
+        level_sizes=tuple(int(s) for s in fields["level_sizes"]),
+        texels_per_tex=int(fields["texels_per_tex"]),
+        windowed=bool(fields["windowed"]),
+        base_channels=int(fields["base_channels"]),
+        u8=bool(fields["u8"]), morton=bool(fields["morton"]))
+
+
+# ---- K7: the windowed u8 bilinear tap --------------------------------------
+
+def windowed_blend_ref(texels: torch.Tensor, idx: torch.Tensor,
+                       fx: torch.Tensor, fy: torch.Tensor, C: int,
+                       channel_first: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K7 (any device).
+
+    texels (R, 4C) u8 windowed rows; idx (N,) i32 row indices (clamped to
+    the pool); fx, fy (N,) f32 corner fractions -> (N, C) f32, or (C, N)
+    with ``channel_first``. Decode ``q * (1/255)``, then
+    ``lerp(lerp(c00, c10, fx), lerp(c01, c11, fx), fy)`` with the
+    reference's fused multiply-adds (``fp.lerp``)."""
+    R = texels.shape[0]
+    rows = texels[idx.long().clamp(0, R - 1)].to(F32) * (1.0 / 255.0)
+    fx, fy = fx[:, None], fy[:, None]
+    out = lerp(lerp(rows[:, 0:C], rows[:, C:2 * C], fx),
+               lerp(rows[:, 2 * C:3 * C], rows[:, 3 * C:4 * C], fx), fy)
+    return out.T.contiguous() if channel_first else out
+
+
+def windowed_blend(texels: torch.Tensor, idx: torch.Tensor, fx: torch.Tensor,
+                   fy: torch.Tensor, C: int,
+                   channel_first: bool = False) -> torch.Tensor:
+    """Windowed u8 bilinear tap: :func:`windowed_blend_ref`'s contract.
+    CPU tensors take the plain version; CUDA tensors launch K7."""
+    if texels.device.type == "cpu":
+        return windowed_blend_ref(texels, idx, fx, fy, C, channel_first)
+    global K7_LAUNCHES
+    R, C4 = texels.shape
+    N = idx.shape[0]
+    if (texels.dtype != U8 or C4 != 4 * C or idx.dtype != I32
+            or fx.dtype != F32 or fy.dtype != F32
+            or idx.shape != fx.shape or fx.shape != fy.shape
+            or idx.ndim != 1):
+        raise ValueError("windowed_blend takes (R, 4C) u8 texels and (N,) "
+                         "i32 indices + f32 fractions")
+    ops = [texels.contiguous(), idx.contiguous(), fx.contiguous(),
+           fy.contiguous()]
+    kernels.require_cuda("windowed_blend", *ops)
+    out = torch.empty((C, N) if channel_first else (N, C), dtype=F32,
+                      device=texels.device)
+    if N:
+        code = kernels.library().tr_windowed_blend(
+            *(t.data_ptr() for t in ops), out.data_ptr(), R, C, N,
+            int(channel_first), kernels.stream_handle(texels.device))
+        kernels.check("tr_windowed_blend", code)
+        K7_LAUNCHES += 1
+    return out
+
+
+# ---- samplers ---------------------------------------------------------------
+
+def _level_address(pool: TexturePoolGPU, level_i: torch.Tensor):
+    """Per-pixel (size, offset) of an int32 level: closed form on a
+    power-of-two chain, else a lookup in the static tables."""
+    S0 = pool.level_sizes[0]
+    dev = level_i.device
+    if all(s == S0 >> i and o == (S0 * S0 - (S0 >> i) ** 2) * 4 // 3
+           for i, (s, o) in enumerate(zip(pool.level_sizes,
+                                          pool.level_offsets))):
+        sizes = torch.full_like(level_i, S0) >> level_i
+        return sizes, (S0 * S0 - sizes * sizes) * 4 // 3
+    li = level_i.long()
+    return (torch.tensor(pool.level_sizes, dtype=I32, device=dev)[li],
+            torch.tensor(pool.level_offsets, dtype=I32, device=dev)[li])
+
+
+_HALF = torch.tensor(-0.5)   # texel-centre shift: uv * size - 0.5, fused
+
+
+def _clip(x: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    return torch.minimum(x.clamp(min=0), sizes - 1)
+
+
+def _sample_bilinear_dynamic_level(pool: TexturePoolGPU, tex: torch.Tensor,
+                                   uv: torch.Tensor, level_i: torch.Tensor,
+                                   wrap: bool,
+                                   channel_first: bool = False
+                                   ) -> torch.Tensor:
+    """Bilinear sample at a per-pixel int32 mip level. tex (...) i32
+    records, uv (..., 2) -> (..., C), or (C, ...) with ``channel_first``.
+    A windowed pool reads one row a tap (K7 when u8), others four."""
+    sizes, offs = _level_address(pool, level_i)
+    sf = sizes.to(F32)
+    u = fma(uv[..., 0], sf, _HALF)
+    v = fma(uv[..., 1], sf, _HALF)
+    if wrap:
+        u = torch.remainder(u, sf)         # floor-mod, as jnp.mod
+        v = torch.remainder(v, sf)
+    x0, y0 = torch.floor(u), torch.floor(v)
+    fx, fy = u - x0, v - y0
+    x0i, y0i = x0.to(I32), y0.to(I32)
+    if wrap:
+        x1i = torch.remainder(x0i + 1, sizes)
+        y1i = torch.remainder(y0i + 1, sizes)
+        x0i = torch.remainder(x0i, sizes)
+        y0i = torch.remainder(y0i, sizes)
+    else:
+        x1i = torch.minimum(x0i + 1, sizes - 1)
+        y1i = torch.minimum(y0i + 1, sizes - 1)
+    base = tex * pool.texels_per_tex + offs
+    C = pool.base_channels
+    shape = tuple(base.shape)
+
+    if pool.windowed:
+        idx = base + pool._texel_index(_clip(y0i, sizes), _clip(x0i, sizes),
+                                       sizes)
+        if pool.u8:
+            out = windowed_blend(pool.texels, idx.reshape(-1),
+                                 fx.reshape(-1), fy.reshape(-1), C,
+                                 channel_first)
+            return out.reshape(((C,) + shape) if channel_first
+                               else (shape + (C,)))
+        row = pool.texels[idx.long()]
+        fx, fy = fx[..., None], fy[..., None]
+        out = lerp(lerp(row[..., 0:C], row[..., C:2 * C], fx),
+                   lerp(row[..., 2 * C:3 * C], row[..., 3 * C:4 * C], fx), fy)
+        return out.movedim(-1, 0) if channel_first else out
+
+    def texel(xi, yi):
+        i = base + pool._texel_index(_clip(yi, sizes), _clip(xi, sizes), sizes)
+        return pool.texels[i.long()].to(F32)
+
+    fx, fy = fx[..., None], fy[..., None]
+    t00, t10 = texel(x0i, y0i), texel(x1i, y0i)
+    t01, t11 = texel(x0i, y1i), texel(x1i, y1i)
+    if pool.u8:
+        # the reference's compiler moves the decode scale onto the weights:
+        # q00 * ((1 - fx) / 255) + q10 * (fx / 255), then fused as fp.lerp
+        w0, w1 = (1.0 - fx) * (1.0 / 255.0), fx * (1.0 / 255.0)
+        out = fma(fma(t00, w0, t10 * w1), 1.0 - fy,
+                  fma(t01, w0, t11 * w1) * fy)
+    else:
+        out = lerp(lerp(t00, t10, fx), lerp(t01, t11, fx), fy)
+    return out.movedim(-1, 0) if channel_first else out
+
+
+_BAYER4 = np.array([[0, 8, 2, 10], [12, 4, 14, 6],
+                    [3, 11, 1, 9], [15, 7, 13, 5]], np.float32) / 16.0 \
+    + 1.0 / 32.0
+
+
+def _bayer_threshold(shape2d: tuple, device, phase: int = 0) -> torch.Tensor:
+    """(h, w) tiled 4x4 Bayer thresholds in (0, 1); ``phase`` rotates the
+    pattern so independent decisions (mip level, u, v) decorrelate."""
+    h, w = shape2d
+    bayer = np.roll(_BAYER4.reshape(-1), 5 * phase).reshape(4, 4)
+    full = np.tile(bayer, ((h + 3) // 4, (w + 3) // 4))[:h, :w]
+    return torch.as_tensor(np.ascontiguousarray(full), device=device)
+
+
+def _sample_stochastic_dynamic_level(pool: TexturePoolGPU, tex: torch.Tensor,
+                                     uv: torch.Tensor, level_i: torch.Tensor,
+                                     wrap: bool) -> torch.Tensor:
+    """Stochastic-bilinear sample: one texel a pixel, the bilinear corner
+    chosen by Bayer thresholds on the subtexel fractions."""
+    sizes, offs = _level_address(pool, level_i)
+    sf = sizes.to(F32)
+    u = fma(uv[..., 0], sf, _HALF)
+    v = fma(uv[..., 1], sf, _HALF)
+    if wrap:
+        u = torch.remainder(u, sf)
+        v = torch.remainder(v, sf)
+    x0, y0 = torch.floor(u), torch.floor(v)
+    tu = _bayer_threshold(u.shape[-2:], u.device, phase=1)
+    tv = _bayer_threshold(v.shape[-2:], v.device, phase=2)
+    xi = x0.to(I32) + ((u - x0) > tu).to(I32)
+    yi = y0.to(I32) + ((v - y0) > tv).to(I32)
+    if wrap:
+        xi = torch.remainder(xi, sizes)
+        yi = torch.remainder(yi, sizes)
+    else:
+        xi, yi = _clip(xi, sizes), _clip(yi, sizes)
+    i = tex * pool.texels_per_tex + offs + pool._texel_index(yi, xi, sizes)
+    row = pool._decode(pool.texels[i.long()])
+    return row[..., :pool.base_channels] if pool.windowed else row
+
+
+def sample_pool_mip(pool: TexturePoolGPU, tex: torch.Tensor, uv: torch.Tensor,
+                    level_f: torch.Tensor, wrap: bool = True,
+                    filter: str = "dithered",
+                    channel_first: bool = False) -> torch.Tensor:
+    """Mip-filtered sample at a per-pixel fractional level.
+
+    'trilinear' blends bilinear taps at the two levels; 'dithered' takes
+    one bilinear tap at lo or lo + 1 by a 4x4 Bayer threshold on the level
+    fraction; 'bilinear' the nearest level; 'stochastic' the dithered
+    level and a one-texel stochastic footprint."""
+    nlev = len(pool.level_sizes)
+    lf = level_f.clamp(0.0, nlev - 1.0)
+    lo = torch.floor(lf).to(I32)
+    if filter == "trilinear":
+        frac = (lf - lo.to(F32)).unsqueeze(0 if channel_first else -1)
+        out_lo = _sample_bilinear_dynamic_level(pool, tex, uv, lo, wrap,
+                                                channel_first)
+        out_hi = _sample_bilinear_dynamic_level(
+            pool, tex, uv, torch.clamp(lo + 1, max=nlev - 1), wrap,
+            channel_first)
+        return lerp(out_lo, out_hi, frac)
+    if filter in ("dithered", "stochastic"):
+        frac = lf - lo.to(F32)
+        thresh = _bayer_threshold(lf.shape[-2:], lf.device)
+        level = torch.clamp(lo + (frac > thresh).to(I32), max=nlev - 1)
+        if filter == "stochastic":
+            out = _sample_stochastic_dynamic_level(pool, tex, uv, level, wrap)
+            return out.movedim(-1, 0) if channel_first else out
+        return _sample_bilinear_dynamic_level(pool, tex, uv, level, wrap,
+                                              channel_first)
+    if filter != "bilinear":
+        raise ValueError(f"unknown texture filter {filter!r}")
+    level = torch.round(lf).clamp(0, nlev - 1).to(I32)
+    return _sample_bilinear_dynamic_level(pool, tex, uv, level, wrap,
+                                          channel_first)
+
+
+def uv_derivatives(uv: torch.Tensor) -> torch.Tensor:
+    """Screen-space finite-difference uv derivatives (..., 4):
+    (dx_u, dx_v, dy_u, dy_v), one-sided at row / column 0, wrap-aware
+    (the nearest integer step is removed)."""
+    du = uv - torch.roll(uv, 1, dims=-2)
+    dv = uv - torch.roll(uv, 1, dims=-3)
+    du[..., :, 0, :] = du[..., :, 1, :]
+    dv[..., 0, :, :] = dv[..., 1, :, :]
+    du = du - torch.round(du)
+    dv = dv - torch.round(dv)
+    return torch.cat([du, dv], dim=-1)
+
+
+_LN2 = float(np.float32(math.log(2.0)))
+
+
+def mip_level_from_uv(uv: torch.Tensor, base_size: int) -> torch.Tensor:
+    """Per-pixel fractional mip level of a resolved uv map (..., H, W, 2)
+    (leading dims are independent images): ``max(0, 0.5 * log2(rho *
+    base^2))`` with rho the larger squared screen-space uv step.
+
+    The reference's ``log2`` is its CPU build's ``log(x) / log(2)``; the
+    port divides ``torch.log`` the same way. The two ``log``
+    implementations still differ in the last bit on a few percent of
+    inputs, which moves a dithered level only when the fraction sits
+    within that bit of a Bayer threshold."""
+    d = uv_derivatives(uv)
+    rho = torch.maximum(fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]),
+                        fma(d[..., 3], d[..., 3], d[..., 2] * d[..., 2]))
+    texel_d2 = rho * float(base_size * base_size)
+    return (0.5 * (torch.log(texel_d2.clamp(min=1e-12)) / _LN2)).clamp(min=0.0)
+
+
+# ---- cubemaps ---------------------------------------------------------------
 
 # For each face (order matches CUBE_FACE_DIRS): dir = f + u * ru + v * rv
 # with u, v in [-1, 1].

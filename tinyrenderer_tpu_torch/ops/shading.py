@@ -1,8 +1,10 @@
 """Fused deferred shading (port of the fused path of ops/shading.py):
 kernel K3, ``csrc/shade.cu``.
 
-One pass over the select + eval outputs, the shadow gates and the sky:
-normalize the geometric normal, pick the flat material, evaluate
+One pass over the select + eval outputs, the material sample, the shadow
+gates and the sky: normalize the geometric normal (and, on textured
+scenes, the tangent frame: the tangent-space normal map and the choice
+between the sampled and the flat material by ``use_tex``), evaluate
 Cook-Torrance per point light (inverse-square falloff) and per
 directional light, each gated on ``shadow > 0``, add SH-9 ambient with
 roughness Fresnel, composite the sky over the background, and write
@@ -17,7 +19,7 @@ import torch
 
 from .. import kernels
 from .env import _SH_C
-from .fp import fma
+from .fp import fma, sqrt
 
 F32 = torch.float32
 
@@ -59,7 +61,7 @@ def _dot3(ax, ay, az, bx, by, bz):
 
 def _norm3(x, y, z):
     # divide (not multiply by a reciprocal), as the reference
-    d = torch.sqrt(_dot3(x, y, z, x, y, z)).clamp(min=1e-12)
+    d = sqrt(_dot3(x, y, z, x, y, z)).clamp(min=1e-12)
     return x / d, y / d, z / d
 
 
@@ -78,15 +80,25 @@ def _layout(outf_c: torch.Tensor, outh_c: torch.Tensor) -> bool:
     return cf == 4
 
 
+def _check_rec(outf_c: torch.Tensor, outh_c: torch.Tensor,
+               rec_c: torch.Tensor | None) -> bool:
+    """True for the slim layout; a material plane needs the full one."""
+    slim = _layout(outf_c, outh_c)
+    if rec_c is not None and (slim or rec_c.shape[0] != 9):
+        raise ValueError("the material plane rec_c (9, H, W) needs the full "
+                         "select + eval layout (the slim one carries no "
+                         "tangent frame or use_tex)")
+    return slim
+
+
 def shade_fused_ref(tri_id: torch.Tensor, outf_c: torch.Tensor,
-                    outh_c: torch.Tensor, gates_c: torch.Tensor,
-                    sky_c: torch.Tensor | None, consts: torch.Tensor,
-                    num_point: int, num_dir: int,
+                    outh_c: torch.Tensor, rec_c: torch.Tensor | None,
+                    gates_c: torch.Tensor, sky_c: torch.Tensor | None,
+                    consts: torch.Tensor, num_point: int, num_dir: int,
                     has_ibl: bool) -> torch.Tensor:
     """Plain PyTorch version of K3 (any device), line by line the
-    reference's ``_shade_kernel`` for a flat-only scene (no material
-    plane). Returns (3, H, W) HDR."""
-    slim = _layout(outf_c, outh_c)
+    reference's ``_shade_kernel``. Returns (3, H, W) HDR."""
+    slim = _check_rec(outf_c, outh_c, rec_c)
     c = consts
     valid = tri_id >= 0
     h = outh_c.to(F32)
@@ -94,6 +106,20 @@ def shade_fused_ref(tri_id: torch.Tensor, outf_c: torch.Tensor,
     a0 = 3 if slim else 9
     alb = [h[a0 + k] for k in range(3)]
     rough, metal = h[a0 + 3], h[a0 + 4]
+    if rec_c is not None:
+        # tangent-space normal map through the normalized TBN frame; the
+        # sampled material where the flat params' use_tex (h[14]) is set
+        tx, ty, tz = _norm3(h[3], h[4], h[5])
+        bx, by, bz = _norm3(h[6], h[7], h[8])
+        use_tex = h[14] > 0.5
+        nt = [rec_c[4 + k] * 2.0 - 1.0 for k in range(3)]
+        mx, my, mz = _norm3(_dot3(*nt, tx, bx, nx), _dot3(*nt, ty, by, ny),
+                            _dot3(*nt, tz, bz, nz))
+        nx, ny, nz = (torch.where(use_tex, m, g)
+                      for m, g in ((mx, nx), (my, ny), (mz, nz)))
+        alb = [torch.where(use_tex, rec_c[k], alb[k]) for k in range(3)]
+        rough = torch.where(use_tex, rec_c[7], rough)
+        metal = torch.where(use_tex, rec_c[8], metal)
     px, py, pz = outf_c[0], outf_c[1], outf_c[2]
     vx, vy, vz = _norm3(c[0] - px, c[1] - py, c[2] - pz)
 
@@ -129,7 +155,7 @@ def shade_fused_ref(tri_id: torch.Tensor, outf_c: torch.Tensor,
         b0 = 3 + 6 * i
         tlx, tly, tlz = c[b0] - px, c[b0 + 1] - py, c[b0 + 2] - pz
         d2 = _dot3(tlx, tly, tlz, tlx, tly, tlz).clamp(min=1e-8)
-        dist = torch.sqrt(d2)
+        dist = sqrt(d2)
         atten = 1.0 / d2
         gate = (gates_c[i] > 0.0).to(F32)
         hdr = add_light(hdr, tlx / dist, tly / dist, tlz / dist,
@@ -161,40 +187,43 @@ def shade_fused_ref(tri_id: torch.Tensor, outf_c: torch.Tensor,
 
 
 def shade_deferred_fused(tri_id: torch.Tensor, outf_c: torch.Tensor,
-                         outh_c: torch.Tensor, gates_c: torch.Tensor,
-                         sky_c: torch.Tensor | None,
+                         outh_c: torch.Tensor, rec_c: torch.Tensor | None,
+                         gates_c: torch.Tensor, sky_c: torch.Tensor | None,
                          camera_pos: torch.Tensor, lights: ShadingLights,
                          num_point: int, num_dir: int,
                          irradiance_sh: torch.Tensor | None) -> torch.Tensor:
     """Fused deferred shading + sky composite -> (3, H, W) HDR.
 
     tri_id (H, W) i32; outf_c / outh_c the select + eval split outputs
-    (slim or full layout, outh f32 or bf16); gates_c (P + D, H, W) 0/1
-    shadow gates, points first; sky_c (3, H, W) or None. Flat-only: the
-    textured material plane of the reference kernel is not ported (a
-    textured scene is refused upstream). CPU tensors take
-    :func:`shade_fused_ref`; CUDA tensors launch K3."""
+    (slim or full layout, outh f32 or bf16); rec_c (9, H, W) f32 material
+    sample [albedo rgba | normal rgb | rough | metal] (full layout only),
+    or None for a flat-only scene: then outh's use_tex plane must be 0
+    everywhere, as the engine guarantees through ``cfg.any_textured``;
+    gates_c (P + D, H, W) 0/1 shadow gates, points first; sky_c (3, H, W)
+    or None. CPU tensors take :func:`shade_fused_ref`; CUDA tensors launch
+    K3."""
     if num_point + num_dir == 0 or gates_c.shape[0] != num_point + num_dir:
         raise ValueError("fused shading needs one gate plane per light")
     consts = pack_shading_consts(camera_pos, lights, num_point, num_dir,
                                  irradiance_sh)
     has_ibl = irradiance_sh is not None
     if tri_id.device.type == "cpu":
-        return shade_fused_ref(tri_id, outf_c, outh_c, gates_c, sky_c, consts,
-                               num_point, num_dir, has_ibl)
+        return shade_fused_ref(tri_id, outf_c, outh_c, rec_c, gates_c, sky_c,
+                               consts, num_point, num_dir, has_ibl)
     global K3_LAUNCHES
-    _layout(outf_c, outh_c)
+    _check_rec(outf_c, outh_c, rec_c)
     H, W = tri_id.shape
     if (tri_id.dtype != torch.int32 or outf_c.dtype != F32
             or outh_c.dtype not in (F32, torch.bfloat16)
             or gates_c.dtype != F32
-            or (sky_c is not None and sky_c.dtype != F32)):
+            or any(t is not None and t.dtype != F32 for t in (rec_c, sky_c))):
         raise ValueError("fused shading operand dtypes: i32 ids, f32 planes, "
                          "f32 or bf16 attributes")
+    rec_c, sky_c = (None if t is None else t.contiguous()
+                    for t in (rec_c, sky_c))
     ops = [consts.contiguous(), tri_id.contiguous(), outf_c.contiguous(),
            outh_c.contiguous(), gates_c.contiguous()]
-    if sky_c is not None:
-        ops.append(sky_c.contiguous())
+    ops += [t for t in (rec_c, sky_c) if t is not None]
     kernels.require_cuda("shade_deferred_fused", *ops)
     for t in ops[1:]:
         if t.shape[-2:] != (H, W):
@@ -205,8 +234,9 @@ def shade_deferred_fused(tri_id: torch.Tensor, outf_c: torch.Tensor,
     hdr = torch.empty((3, H, W), dtype=F32, device=tri_id.device)
     code = kernels.library().tr_shade(
         ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
-        ops[3].data_ptr(), ops[4].data_ptr(),
-        ops[5].data_ptr() if sky_c is not None else None, hdr.data_ptr(),
+        ops[3].data_ptr(), None if rec_c is None else rec_c.data_ptr(),
+        ops[4].data_ptr(), None if sky_c is None else sky_c.data_ptr(),
+        hdr.data_ptr(),
         H, W, outf_c.shape[0], outh_c.shape[0],
         int(outh_c.dtype == torch.bfloat16), num_point, num_dir,
         int(has_ibl), kernels.stream_handle(tri_id.device))

@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import compact
 from ..ops import env as envops
 from ..ops import sampling
 from ..shared import Camera, World, config, level_io
@@ -46,10 +47,14 @@ class Engine:
         "bins": ("bin_capacity", "Raster bin overflow"),
         "binsbig": ("bin_big_capacity", "Big-triangle list overflow"),
         "shadow": ("shadow_bin_capacity", "Shadow bin overflow"),
+        "tex": ("tex_block_capacity", "Textured-block overflow"),
+        "fwdtex": ("fwd_tile_capacity", "Forward overlay tile overflow"),
         "shadowblk": ("shadow_block_capacity",
                       "Shadow boundary-block overflow"),
         "stream": ("stream_capacity", "Raster stream overflow"),
     }
+    # block-compaction work lists: grown and shrunk in 256-block steps
+    _BLOCK_KINDS = ("tex", "fwdtex", "shadowblk")
 
     def __init__(self, cfg: Optional[config.RenderConfig] = None, *,
                  device, level_path: Optional[str] = None,
@@ -140,8 +145,7 @@ class Engine:
             self._packer = ScenePacker(self.cfg, self.asset_search_paths)
             self._pack = self._packer.pack(self.world, self.device)
         # light counts set the shadow-view count; forward triangles and
-        # textured materials select frame paths (render_frame refuses the
-        # ones not ported)
+        # textured materials select frame paths
         c = self._pack.counts
         has_fwd = c["forward_triangles"] > 0
         any_tex = c["textured_materials"] > 0
@@ -171,11 +175,14 @@ class Engine:
                 self._pack.scene, self._pack.lights, self.cfg)
             kinds.append(("shadow", "binsbig"))
             values += [s_ovf, s_big]
-        out = framelib.render_frame(self._pack.scene, self._pack.lights,
-                                    cam_raw, self.params, env, self.cfg,
-                                    self._atlas)
-        kinds.append(("bins", "binsbig", "shadowblk", "stream"))
-        values += [out.bin_overflow, out.big_overflow, out.shadow_blocks,
+        out = framelib.render_frame(
+            self._pack.scene, self._packer.pool_for(self.cfg, self.device),
+            self._pack.lights, cam_raw, self.params, env, self.cfg,
+            self._atlas)
+        kinds.append(("bins", "binsbig", "tex", "fwdtex", "shadowblk",
+                      "stream"))
+        values += [out.bin_overflow, out.big_overflow, out.tex_overflow[0],
+                   out.tex_overflow[1], out.shadow_blocks,
                    out.stream_overflow]
         vals = torch.stack([v.to(torch.int32) for v in values]).tolist()
         self.last_frame_ms = (time.perf_counter() - t0) * 1e3
@@ -186,6 +193,21 @@ class Engine:
         self.last_output = out
         self.frame_index += 1
         return out
+
+    def _tex_block_count(self) -> int:
+        """Screen blocks of the frame the tex monitor describes (the
+        internal frame under render_scale_pct): the dense-sampling
+        threshold of tex_block_capacity growth."""
+        cfg = self.cfg
+        if cfg.render_scale_pct != 100:
+            pct = cfg.render_scale_pct
+            cfg = replace(cfg, render_scale_pct=100,
+                          width=max(cfg.tile_w, (cfg.width * pct) // 100),
+                          height=max(cfg.tile_h, (cfg.height * pct) // 100))
+        dims = compact.block_dims(cfg.padded_height, cfg.padded_width)
+        if dims is None:
+            return 0
+        return (cfg.padded_height // dims[0]) * (cfg.padded_width // dims[1])
 
     def _apply_monitor_values(self, kinds, vals) -> bool:
         """Grow (or, after SHRINK_AFTER low frames, shrink) capacities from
@@ -200,8 +222,13 @@ class Engine:
             if cap <= 0:
                 continue
             if v > cap:
-                if kind == "shadowblk":
+                if kind in self._BLOCK_KINDS:
+                    # 12.5% headroom in 256-block steps: the compacted
+                    # work scales with the capacity
                     new_cap = -(-int(v * 1.125) // 256) * 256
+                    nb = self._tex_block_count() if kind == "tex" else 0
+                    if nb and new_cap >= nb // 2:
+                        new_cap = nb      # dense sampling from here on
                 else:
                     new_cap = 1 << (v - 1).bit_length()
                 log.info("%s %d > %d; growing %s to %d", label, v, cap, field,
@@ -217,7 +244,7 @@ class Engine:
             if cap > floor and v < int(cap * 0.4):
                 n = self._under_count.get(kind, 0) + 1
                 if n >= self.SHRINK_AFTER:
-                    if kind == "shadowblk":
+                    if kind in self._BLOCK_KINDS:
                         new_cap = max(floor, -(-max(v, 1) * 2 // 256) * 256)
                     else:
                         new_cap = max(floor, 1 << max(2 * v - 1, 1).bit_length())

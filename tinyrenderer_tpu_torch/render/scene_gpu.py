@@ -7,9 +7,10 @@ host numpy (:class:`ScenePacker`); :func:`scene_from_numpy` and
 :func:`lights_from_numpy` upload the named arrays — the port's own pack,
 or the JAX pack's fields fetched with ``np.asarray``.
 
-The texture pool stays on the host (``assets.textures.TexturePool``): the
-port renders flat-only scenes, and the engine refuses a scene whose
-deferred triangles reference a textured material.
+Material textures are staged on the host (``assets.textures.TexturePool``,
+shared with the reference) as composite 9-channel records; ``pool_for``
+packs them into the windowed u8 device pool the frame samples, once per
+pool change and device.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import sampling
 from ..shared import World, config
 from ..shared import components as comp
 from ..shared import lights as lightslib
@@ -114,6 +116,8 @@ class ScenePacker:
         self.cfg = cfg
         self.asset_search_paths = asset_search_paths
         self.pool = texlib.TexturePool.create(cfg)
+        self._pool_gpu: dict = {}     # (windowed, morton, device) -> pool
+        self._pool_dirty = True       # host records changed since packing
         self._mesh_cache: dict = {}
         self._material_cache: dict = {}
         # (tex slots, flat params, record); material 0 is the default
@@ -188,10 +192,39 @@ class ScenePacker:
                             else self.pool.default_slot(usage.value))
             flat = np.array([1.0, 1.0, 1.0, 1.0, 0.0, 1.0], F32)
             record = self.pool.get_or_make_record(tuple(slots))
+            self._pool_dirty = True
         idx = len(self._materials)
         self._materials.append((slots, flat, record))
         self._material_cache[key] = idx
         return idx
+
+    def texture_pool_gpu(self, device, windowed: bool = True,
+                         morton: bool = False) -> sampling.TexturePoolGPU:
+        """The composite material-record pool (9-channel u8 texels) on
+        ``device``, repacked when a textured material changed the host
+        records (their count, bucketed by ``record_arrays``, sets its
+        shape). ``windowed`` (``cfg.windowed_pool``) packs each row with its
+        bilinear neighbourhood; ``morton`` (``cfg.morton_pool``) stores each
+        level in Z-curve order."""
+        if self._pool_dirty:
+            self._pool_gpu = {}
+            self._pool_dirty = False
+        key = (windowed, morton, str(device))
+        if key not in self._pool_gpu:
+            self._pool_gpu[key] = sampling.pack_texture_pool(
+                self.pool.record_arrays(), windowed=windowed, u8=True,
+                morton=morton, device=device)
+        return self._pool_gpu[key]
+
+    def pool_for(self, cfg: config.RenderConfig,
+                 device) -> sampling.TexturePoolGPU:
+        """The pool matching a RenderConfig's layout flags."""
+        if cfg.native_texture_pool:
+            raise NotImplementedError(
+                "the native-size texture pool (native_texture_pool) is not "
+                "ported yet (ROADMAP.md queue 1 item 14)")
+        return self.texture_pool_gpu(device, cfg.windowed_pool,
+                                     cfg.morton_pool)
 
     def _count_textured_deferred(self, t_inst, t_def, i_mat) -> int:
         """Textured materials referenced by at least one deferred triangle
