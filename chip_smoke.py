@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Builds the six hand-written kernels (K1-K5, K7) from
+Builds the seven hand-written kernels (K1-K7) from
 ``tinyrenderer_tpu_torch/csrc`` (one ``nvcc`` a source, in parallel) and
 runs, each phase asserting or letting its exception propagate:
 
@@ -31,11 +31,36 @@ runs, each phase asserting or letting its exception propagate:
    launch counters reset just before; one frame is rendered through the
    kernels and again through the plain versions; (b) ``levels/demo.lvl``
    with its billboard and (c) its forward-only frame, each kernels
-   against plain versions.
+   against plain versions;
+6. the unfused deferred chain on the textured world of phase 5 at
+   1920x1080, each configuration settled, timed over ten engine frames and
+   rendered through the kernels and through the plain versions: (a)
+   ``fused_resolve`` (K6, first held against its plain version at the
+   captured main-view shape), (b) SSR at strength 0.5, (c)
+   ``render_scale_pct=75``, (d) ``texture_scale=2``, (e) the goldens'
+   settings (``use_pallas=False``, shadow lookups and sky at 1/4 rate, f32
+   atlas).
 
-Usage: ``python3 chip_smoke.py`` from the repository root (one CUDA device;
-exits non-zero without a result line when there is none). The last line
-of standard output is ``{"ok": true, "device": {...}}``.
+Each kernel's line on the ``kernels`` JSON record carries its bound: the
+larger of the bytes it must move (each input read once, each output written
+once; K7's texel rows as many as its taps touch) over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s, the H100 SXM's published peaks. The
+operations are counted from each kernel's formulas on this run's inputs,
+except K3's, an estimate that stays well below its bytes term.
+No single PyTorch call computes any of these functions, so
+``library_ms`` is null throughout.
+
+With ``--profile``, every engine run timed above (and demo.lvl with its
+overlay and forward-only, settled and timed the same way) is followed by
+``torch.profiler`` over 5 more frames: device time and device-side
+launches a frame (kernel, copy and fill events), the idle share of the
+steady frame, each hand-written kernel's time and the costliest device
+entries. They are printed and written one JSON object a run to
+``chiprun_out/chip_smoke_profile.jsonl``.
+
+Usage: ``python3 chip_smoke.py [--profile]`` from the repository root (one
+CUDA device; exits non-zero without a result line when there is none). The
+last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -44,6 +69,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -52,6 +78,25 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LEVEL = os.path.join(ROOT, "levels", "demo.lvl")
 REPS = 20
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
+F32_FLOPS = 67e12
+# the kernels of tinyrenderer_tpu_torch/csrc, by their __global__ names
+GLOBALS = {"K1": "raster_kernel", "K2": "select_eval_kernel",
+           "K3": "shade_kernel", "K4": "raster_stream_kernel",
+           "K5": "select_eval_stream_kernel", "K6": "raster_resolve_kernel",
+           "K7": "windowed_blend_kernel"}
+
+
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms, what bounds it) for work that moves ``nbytes`` and does
+    ``flops`` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def _median_ms(fn, reps: int = REPS) -> float:
@@ -70,6 +115,40 @@ def _median_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def _device_profile(engine, steady_ms: float, n: int = 5) -> dict:
+    """``torch.profiler`` over ``n`` engine frames: device ms, device-side
+    launches, the idle share of ``steady_ms`` and each kernel's ms, a
+    frame, and the ten costliest device entries."""
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            engine.run_frame(0.0)
+        torch.cuda.synchronize()
+    device_us, launches, kernel_us = 0.0, 0, dict.fromkeys(GLOBALS, 0.0)
+    entries = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        device_us += us
+        launches += e.count
+        entries.append((us, e.count, e.key))
+        for k, name in GLOBALS.items():
+            if re.search(rf"\b{name}(\b[<(]|$)", e.key):
+                kernel_us[k] += us
+    if device_us <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    device_ms = device_us / 1e3 / n
+    return {"steady_ms": steady_ms, "device_ms": device_ms,
+            "idle": 1.0 - device_ms / steady_ms, "launches": launches / n,
+            "kernel_ms": {k: v / 1e3 / n for k, v in kernel_us.items() if v},
+            "top": [(us / 1e3 / n, c // n, key[:80])
+                    for us, c, key in sorted(entries, reverse=True)[:10]]}
+
+
 @contextlib.contextmanager
 def _patched(module, name: str, fn):
     old = getattr(module, name)
@@ -80,8 +159,13 @@ def _patched(module, name: str, fn):
         setattr(module, name, old)
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
+    unknown = [a for a in argv if a != "--profile"]
+    if unknown:
+        print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
+        return 2
+    profile = "--profile" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -91,7 +175,9 @@ def main() -> int:
                                             sampling, shading)
     from tinyrenderer_tpu_torch.render import frame as framelib
     from tinyrenderer_tpu_torch.render.engine import Engine
-    from tinyrenderer_tpu_torch.shared import RenderConfig, demo, verify
+    from tinyrenderer_tpu_torch.config import RenderConfig
+    from tinyrenderer_tpu_torch.scene import demo
+    from tinyrenderer_tpu_torch.utils import verify
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,14 +222,70 @@ def main() -> int:
 
     results = {}
 
-    def compare(name, kernel_fn, plain_fn, check, plain_reps=REPS):
+    def compare(name, kernel_fn, plain_fn, check, work, plain_reps=REPS):
+        """The kernel against its plain version on the same inputs, both
+        timed; ``work`` = (bytes, float32 operations) of the call."""
         out_k, out_p = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = check(out_k, out_p)
         ms, plain_ms = _median_ms(kernel_fn), _median_ms(plain_fn, plain_reps)
+        bound_ms, bound_by = _bound(*work)
         print(f"{name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms", flush=True)
-        results[name] = (err, ms, plain_ms)
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+        results[name] = (err, ms, plain_ms, bound_ms, bound_by)
+
+    def raster_work(bins, th, tw, table=None):
+        """K1 / K6: the rows each tile races (its count, at most K) at 16
+        operations a row and pixel (four planes of two multiply-adds),
+        tri_id and depth written; K6 also reads the table and writes each
+        pixel's row."""
+        ty, tx, K, _ = bins.rows.shape
+        rows = int(bins.counts.clamp(0, K).sum())
+        px = ty * tx * th * tw
+        nbytes = _nbytes(bins.counts) + rows * 64 + px * 8
+        if table is not None:
+            nbytes += _nbytes(table) + px * table.shape[1] * 4
+        return nbytes, rows * th * tw * 16
+
+    def window_rows(sb, kmax):
+        """Rows of the stream's walked windows, over all tiles."""
+        start, stop = raster.walked_windows(sb.starts, sb.rows.shape[0], kmax)
+        return int((stop - start).clamp(min=0).sum())
+
+    def stream_work(sb, ty, tx, th, tw, kmax):
+        """K4: the rows of each tile's walked window, as raster_work."""
+        rows = window_rows(sb, kmax)
+        return (_nbytes(sb.starts) + rows * 64 + ty * tx * th * tw * 8,
+                rows * th * tw * 16)
+
+    def eval_work(tri_id, table, bf16=True, window_ids=0):
+        """K2 / K5: tri_id and the table read (K5 also its windows' ids),
+        the split planes written; per covered pixel the denominator plane
+        (4 operations) and each attribute plane and division (5)."""
+        n_attr, cf, ch = resolve._layout(table.shape[1])
+        px = tri_id.numel()
+        nbytes = (_nbytes(tri_id, table) + window_ids * 4
+                  + px * (cf * 4 + ch * (2 if bf16 else 4)))
+        return nbytes, int((tri_id >= 0).sum()) * (4 + 5 * n_attr)
+
+    def shade_work(tid, outf, outh, rec, gates, sky, P, D, irr):
+        """K3: its planes read, (3, H, W) written. The operations are an
+        estimate, not a count of shade.cu: per pixel ~40 of setup and sky,
+        ~110 a light, ~100 for the SH-9 ambient. It only has to stay below
+        the bytes term (a quarter of it or less at 1080p)."""
+        px = tid.numel()
+        return (_nbytes(tid, outf, outh, rec, gates, sky) + px * 12,
+                px * (40 + 110 * (P + D) + (100 if irr is not None else 0)))
+
+    def blend_work(texels, idx, fx, fy, C):
+        """K7: each texel row the taps touch read once, each tap's index and
+        fractions read, C floats a tap written; a channel's decode and
+        bilinear blend ~13 operations."""
+        n = idx.numel()
+        rows = torch.unique(idx.long().clamp(0, texels.shape[0] - 1)).numel()
+        return (rows * texels.shape[1] * texels.element_size()
+                + _nbytes(idx, fx, fy) + n * C * 4, n * C * 13)
 
     def raster_check(a, b):
         assert torch.equal(a[0], b[0]), "K1 tri_id differs from the plain version"
@@ -156,7 +298,7 @@ def main() -> int:
               f", K={bins.rows.shape[2]}")
         compare(key, lambda: raster.rasterize_binned(bins, th, tw),
                 lambda: raster.rasterize_binned_ref(bins, th, tw, chunk=16),
-                raster_check)
+                raster_check, raster_work(bins, th, tw))
 
     def eval_check(a, b):
         for x, y in zip(a, b):
@@ -170,7 +312,8 @@ def main() -> int:
     full_table = resolve.build_gbuffer_table(*targs, **{**tkw, "slim": False})
     for key, tab in (("K2 slim", table), ("K2 full", full_table)):
         compare(key, lambda: resolve.select_eval(tri_id, tab, **kw),
-                lambda: resolve.select_eval_ref(tri_id, tab, **kw), eval_check)
+                lambda: resolve.select_eval_ref(tri_id, tab, **kw), eval_check,
+                eval_work(tri_id, tab, **kw))
 
     (tid, outf, outh, rec, gates, sky, campos, slights, P, D, irr), _ = \
         captured["K3"]
@@ -186,26 +329,30 @@ def main() -> int:
                 tid, outf, outh, None, gates, sky, campos, slights, P, D, irr),
             lambda: shading.shade_fused_ref(tid, outf, outh, None, gates, sky,
                                             consts, P, D, irr is not None),
-            shade_check)
+            shade_check, shade_work(tid, outf, outh, None, gates, sky, P, D, irr))
     assert (P, D) == (1, 1) and irr is not None and sky is not None
 
     def launch_counts():
         return {"K1": raster.K1_LAUNCHES, "K2": resolve.K2_LAUNCHES,
                 "K3": shading.K3_LAUNCHES, "K4": raster.K4_LAUNCHES,
-                "K5": resolve.K5_LAUNCHES, "K7": sampling.K7_LAUNCHES}
+                "K5": resolve.K5_LAUNCHES, "K6": raster.K6_LAUNCHES,
+                "K7": sampling.K7_LAUNCHES}
 
     launches = dict.fromkeys(launch_counts(), 0)   # main-path runs only
+    profiles = []
 
-    def timed_frames(engine, names):
+    def timed_frames(engine, names, label):
         """Ten engine frames, every launch count set to 0 just before; the
         first re-renders the shadow atlas. Adds the counts read just after
-        to ``launches``. Returns (last output, frame ms, per-frame launches
-        of ``names``, this run's launches, peak MiB)."""
+        to ``launches``; with ``--profile``, then profiles ``label``.
+        Returns (last output, frame ms, per-frame launches of ``names``,
+        this run's launches, peak MiB)."""
         engine._atlas = None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         raster.K1_LAUNCHES = raster.K4_LAUNCHES = resolve.K2_LAUNCHES = 0
         resolve.K5_LAUNCHES = shading.K3_LAUNCHES = sampling.K7_LAUNCHES = 0
+        raster.K6_LAUNCHES = 0
         frame_ms, per_frame = [], []
         for _ in range(10):
             before = launch_counts()
@@ -221,8 +368,18 @@ def main() -> int:
         run = launch_counts()
         for k, n in run.items():
             launches[k] += n
-        return (out, frame_ms, per_frame, run,
-                torch.cuda.max_memory_allocated() / 2**20)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        if profile:
+            r = {"config": label, "card": smi,
+                 **_device_profile(engine, statistics.median(frame_ms[1:]))}
+            profiles.append(r)
+            ks = ", ".join(f"{k} {v:.4f}" for k, v in r["kernel_ms"].items())
+            print(f"profile | {label} | {r['steady_ms']:.3f} ms | "
+                  f"{r['device_ms']:.3f} ms | {100 * r['idle']:.1f}% | "
+                  f"{r['launches']:.0f} | {ks} ms |", flush=True)
+            for ms, count, key in r["top"]:
+                print(f"    {ms:.4f} ms  x{count}  {key}", flush=True)
+        return out, frame_ms, per_frame, run, peak_mb
 
     def shade_plain(tid, outf, outh, rec, gates, sky, campos, slights, P, D,
                     irr):
@@ -242,6 +399,10 @@ def main() -> int:
                      lambda bins, th, tw: raster.rasterize_binned_ref(
                          bins, th, tw, chunk=chunk)),
                     (raster, "rasterize_stream", raster.rasterize_stream_ref),
+                    (raster, "rasterize_resolve_binned",
+                     lambda bins, table, th, tw:
+                     raster.rasterize_resolve_binned_ref(bins, table, th, tw,
+                                                         chunk=chunk)),
                     (resolve, "select_eval", resolve.select_eval_ref),
                     (resolve, "select_eval_stream",
                      resolve.select_eval_stream_ref),
@@ -260,6 +421,17 @@ def main() -> int:
               f"edge-aware compare {res}", flush=True)
         return fast
 
+    def settle(engine, label):
+        """Engine frames until the capacities stop growing (at most 8):
+        (last output, frames run)."""
+        for i in range(8):
+            cfg_before, atlas_frame = engine.cfg, engine._atlas is None
+            out = engine.run_frame(0.0)
+            torch.cuda.synchronize()
+            if engine.cfg == cfg_before and not atlas_frame:
+                return out, i + 1
+        raise AssertionError(f"{label}: capacities did not settle: {engine.cfg}")
+
     # ---- phase 2: the engine path, 10 frames at 1920x1080 ---------------
     eng = Engine.from_world(
         demo.build_demo_world(n_cubes=24, with_point_light=False),
@@ -269,7 +441,7 @@ def main() -> int:
     eng._ensure_env()
     assert framelib.use_fused_shading(eng.cfg), "fused path not taken"
     out, frame_ms, per_frame, run, peak_mb = timed_frames(
-        eng, ("K1", "K2", "K3"))
+        eng, ("K1", "K2", "K3"), "demo world, directional light (fused)")
     assert run["K4"] == run["K5"] == 0, run
     views = eng.cfg.num_shadow_views
     assert per_frame[0] == (1 + views, 1, 1), per_frame[0]
@@ -338,13 +510,14 @@ def main() -> int:
           f"of {th4}x{tw4}, kmax {kmax}", flush=True)
     compare("K4", lambda: raster.rasterize_stream(sb, ty4, tx4, th4, tw4, kmax),
             lambda: raster.rasterize_stream_ref(sb, ty4, tx4, th4, tw4, kmax),
-            raster_check)
+            raster_check, stream_work(sb, ty4, tx4, th4, tw4, kmax))
     (tid4, sb5, table4, th5, tw5, kmax5), kw5 = captured["K5"]
     compare("K5", lambda: resolve.select_eval_stream(tid4, sb5, table4, th5,
                                                      tw5, kmax5, **kw5),
             lambda: resolve.select_eval_stream_ref(tid4, sb5, table4, th5,
                                                    tw5, kmax5, **kw5),
-            eval_check)
+            eval_check, eval_work(tid4, table4, **kw5,
+                                  window_ids=window_rows(sb5, kmax5)))
     key1 = f"K1 shadow K={c4.shadow_bin_capacity}"
     (bins1, th1, tw1), _ = captured[key1]
     assert int(bins1.overflow) <= c4.shadow_bin_capacity
@@ -353,12 +526,12 @@ def main() -> int:
           f"{int(bins1.overflow)}", flush=True)
     compare(key1, lambda: raster.rasterize_binned(bins1, th1, tw1),
             lambda: raster.rasterize_binned_ref(bins1, th1, tw1, chunk=64),
-            raster_check, plain_reps=1)
+            raster_check, raster_work(bins1, th1, tw1), plain_reps=1)
     del captured[key1], bins1
 
     # (b) ten engine frames; the first re-renders the shadow atlas
     out4, frame_ms, per_frame, run, peak_mb = timed_frames(
-        eng4, ("K1", "K4", "K5", "K3"))
+        eng4, ("K1", "K4", "K5", "K3"), "high-poly world (stream)")
     views = c4.num_shadow_views
     assert eng4.cfg == c4, "capacities grew during the timed frames"
     assert run["K2"] == 0, run
@@ -389,20 +562,13 @@ def main() -> int:
         demo.build_demo_world(n_cubes=24, textured_every=2),
         camera=demo.build_demo_camera(1920, 1080), cfg=RenderConfig(),
         device=dev)
-    for i in range(8):                # run until the capacities settle
-        cfg_before, atlas_frame = eng5.cfg, eng5._atlas is None
-        out5 = eng5.run_frame(0.0)
-        torch.cuda.synchronize()
-        if eng5.cfg == cfg_before and not atlas_frame:
-            break
-    else:
-        raise AssertionError(f"textured capacities did not settle: {eng5.cfg}")
+    out5, n_frames = settle(eng5, "textured demo world")
     c5 = eng5.cfg
     assert c5.any_textured and c5.has_forward and framelib.use_fused_shading(c5)
     assert (c5.num_point_lights, c5.num_directional_lights) == (1, 1)
     tex_blocks, fwd_tiles = out5.tex_overflow.tolist()
     assert 0 < tex_blocks and 0 < fwd_tiles <= c5.fwd_tile_capacity
-    print(f"textured demo world 1920x1080: settled after {i + 1} frames: "
+    print(f"textured demo world 1920x1080: settled after {n_frames} frames: "
           f"tex_block_capacity {c5.tex_block_capacity} ({tex_blocks} textured "
           f"blocks wanted of {eng5._tex_block_count()}), fwd_tile_capacity "
           f"{c5.fwd_tile_capacity} ({fwd_tiles} overlay tiles)", flush=True)
@@ -439,7 +605,8 @@ def main() -> int:
         compare(key, lambda: sampling.windowed_blend(texels, idx, fx, fy, C,
                                                      cfirst),
                 lambda: sampling.windowed_blend_ref(texels, idx, fx, fy, C,
-                                                    cfirst), blend_check)
+                                                    cfirst), blend_check,
+                blend_work(texels, idx, fx, fy, C))
     (tid5, outf5, outh5, rec5, gates5, sky5, campos5, sl5, P5, D5, irr5), _ = \
         captured["K3 textured"]
     assert rec5 is not None and rec5.shape == (9,) + tuple(tid5.shape)
@@ -450,10 +617,11 @@ def main() -> int:
             lambda: shading.shade_fused_ref(tid5, outf5, outh5, rec5, gates5,
                                             sky5, consts5, P5, D5,
                                             irr5 is not None),
-            shade_check)
+            shade_check, shade_work(tid5, outf5, outh5, rec5, gates5, sky5, P5,
+                                    D5, irr5))
 
     out5, frame_ms, per_frame, run, peak_mb = timed_frames(
-        eng5, ("K1", "K2", "K3", "K7"))
+        eng5, ("K1", "K2", "K3", "K7"), "textured world (fused)")
     views = c5.num_shadow_views
     assert eng5.cfg == c5, "capacities grew during the timed frames"
     assert run["K4"] == run["K5"] == 0, run
@@ -487,6 +655,87 @@ def main() -> int:
     assert int(out5b.tex_overflow[1]) > 0
     kernel_vs_plain("demo.lvl 1920x1080 forward-only", lambda: render3(
         dataclasses.replace(cfg5b, forward_only=True)))
+    if profile:     # the same two frames as engine runs
+        for label, change in (("demo.lvl with the overlay", {}),
+                              ("demo.lvl forward-only", dict(forward_only=True))):
+            eng3.cfg = dataclasses.replace(cfg5b, **change)
+            eng3._atlas = None
+            settle(eng3, label)
+            timed_frames(eng3, (), label)
+
+    # ---- phase 6: the unfused deferred chain and K6, 1920x1080 -----------
+    # the textured world of phase 5 (point + directional light, billboard)
+    six = ("K1", "K2", "K3", "K6", "K7")
+    phase6 = [("a", "fused_resolve", dict(fused_resolve=True)),
+              ("b", "SSR at strength 0.5", dict(enable_ssr=True)),
+              ("c", "render_scale_pct 75", dict(render_scale_pct=75)),
+              ("d", "texture_scale 2", dict(texture_scale=2)),
+              ("e", "the goldens' settings",
+               dict(use_pallas=False, shadow_lookup_scale=4, sky_scale=4,
+                    shadow_bf16=False))]
+    for tag, label, change in phase6:
+        eng5.cfg = dataclasses.replace(c5, **change)
+        eng5._atlas = None
+        eng5.set_param(framelib.PARAM_SSR_STRENGTH,
+                       0.5 if change.get("enable_ssr") else 0.0)
+        framelib.check_ported(eng5.cfg)
+        settle(eng5, label)
+        c6 = eng5.cfg
+        fused = framelib.use_fused_shading(c6) and c6.render_scale_pct == 100
+        assert not fused, f"{label}: took the fused frame"
+        if tag == "a":
+            with capture(raster, "rasterize_resolve_binned",
+                         lambda *a, **k: "K6"):
+                eng5.run_frame(0.0)
+            torch.cuda.synchronize()
+            (bins6, table6, th6, tw6), _ = captured["K6"]
+            print(f"K6 {bins6.rows.shape[0] * th6}x{bins6.rows.shape[1] * tw6}: "
+                  f"{th6}x{tw6} tiles, K={bins6.rows.shape[2]}, table "
+                  f"{tuple(table6.shape)}", flush=True)
+
+            def resolve_check(a, b):
+                raster_check(a, b)
+                assert torch.equal(a[2], b[2]), \
+                    "K6 sel differs from the plain version"
+                return (a[2] - b[2]).abs().max().item()
+            compare("K6", lambda: raster.rasterize_resolve_binned(
+                        bins6, table6, th6, tw6),
+                    lambda: raster.rasterize_resolve_binned_ref(
+                        bins6, table6, th6, tw6, chunk=16),
+                    resolve_check, raster_work(bins6, th6, tw6, table6))
+        out6, frame_ms, per_frame, run, peak_mb = timed_frames(
+            eng5, six, f"textured, {label}")
+        assert eng5.cfg == c6, f"{label}: capacities grew during the timed frames"
+        assert run["K4"] == run["K5"] == 0, run
+        if tag == "a":
+            assert all(p[3] == 1 for p in per_frame) and run["K2"] == 0, per_frame
+        if tag in "bde":
+            assert run["K3"] == 0 and run["K2"] >= 10, run
+        if tag == "c":
+            assert all(p[2] == 1 for p in per_frame), per_frame
+        pick = out6.pick_id
+        assert out6.sdr.shape == (1080, 1920, 3) and pick.shape == (1080, 1920)
+        assert torch.isfinite(out6.hdr).all() and (pick == 0).any()
+        assert len(torch.unique(pick)) > 20
+        print(f"6{tag} {label} 1920x1080: launches {six} per frame {per_frame}, "
+              f"frame ms {[round(t, 3) for t in frame_ms]}, first "
+              f"{frame_ms[0]:.3f} ms (re-renders the atlas), median of the "
+              f"steady 9: {statistics.median(frame_ms[1:]):.3f} ms, peak memory "
+              f"{peak_mb:.1f} MiB, objects {len(torch.unique(pick)) - 1}",
+              flush=True)
+        scene6, lights6 = eng5._pack.scene, eng5._pack.lights
+        cam6 = torch.as_tensor(eng5.camera.to_raw(), device=dev)
+        out6 = kernel_vs_plain(f"6{tag} {label}", lambda: framelib.render_frame(
+            scene6, eng5._packer.pool_for(c6, dev), lights6, cam6, eng5.params,
+            env5, c6))
+        if tag == "b":       # the reflections changed the frame
+            eng5.set_param(framelib.PARAM_SSR_STRENGTH, 0.0)
+            still = framelib.render_frame(
+                scene6, eng5._packer.pool_for(c6, dev), lights6, cam6,
+                eng5.params, env5, c6)
+            moved = (still.hdr != out6.hdr).any(dim=-1).float().mean().item()
+            print(f"6b: SSR changed {moved:.4f} of the pixels", flush=True)
+            assert moved > 0.001
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),
@@ -496,22 +745,31 @@ def main() -> int:
                "K4": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:812", "K4"),
                "K5": ("select_eval.cu", "tinyrenderer_tpu/ops/resolve.py:647",
                       "K5"),
+               "K6": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:627", "K6"),
                "K7": ("sampling.cu", "tinyrenderer_tpu/ops/sampling.py:63",
                       "K7 material")}
     extra = {"K3": ("textured", "K3 textured"), "K7": ("sprite", "K7 sprite")}
     table_out = []
     for name, (src, replaces, key) in sources.items():
         err = max(v[0] for k, v in results.items() if k.startswith(name))
-        _, ms, plain_ms = results[key]
+        _, ms, plain_ms, bound_ms, bound_by = results[key]
         assert launches[name] > 0, f"{name} never launched on a main path"
         entry = {"name": name, "route": "cuda",
                  "source": f"tinyrenderer_tpu_torch/csrc/{src}",
                  "replaces": replaces, "launches": launches[name],
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": None}
         if name in extra:
             tag, key2 = extra[name]
-            entry[f"{tag}_ms"], entry[f"{tag}_plain_ms"] = results[key2][1:]
+            entry[f"{tag}_ms"], entry[f"{tag}_plain_ms"] = results[key2][1:3]
         table_out.append(entry)
+    if profile:
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_profile.jsonl"), "w") as f:
+            for r in profiles:
+                f.write(json.dumps(r) + "\n")
     print(json.dumps({"kernels": table_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -521,6 +779,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    rc = main()
+    rc = main(sys.argv[1:])
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels (K1-K5, K7) against their plain versions on
+"""The hand-written CUDA kernels (K1-K7) against their plain versions on
 the card (small shapes; chip_smoke.py covers the 1080p shapes). Marked ``cuda``;
 the ``cuda`` fixture skips them where no CUDA device is present. On the
 card (no JAX there, so without the suite's conftest):
@@ -53,6 +53,25 @@ def test_select_eval_kernel_matches_plain(cuda, slim, bf16):
     table = torch.randn(setup.rows.shape[0], D, device=cuda)
     a = resolve.select_eval(tid, table, bf16=bf16)
     b = resolve.select_eval_ref(tid, table, bf16=bf16)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,tw,K,D", [(16, 128, 128, 53), (64, 128, 256, 53),
+                                       (16, 128, 8, 7)])
+def test_raster_resolve_kernel_matches_plain(cuda, th, tw, K, D):
+    """K6 on dense bins (K = 8 clamps the counts; D = 7 an odd row width):
+    tri_id, depth and the selected rows bit-equal to the plain version."""
+    setup, _ = _bins(cuda, th, tw)
+    H, W = 2 * th, 2 * tw
+    bins = raster.bin_triangles_dense(setup, W, H, th, tw, K)
+    table = torch.randn(setup.rows.shape[0], D, device=cuda)
+    n = raster.K6_LAUNCHES
+    a = raster.rasterize_resolve_binned(bins, table, th, tw)
+    b = raster.rasterize_resolve_binned_ref(bins, table, th, tw)
+    torch.cuda.synchronize()
+    assert raster.K6_LAUNCHES == n + 1
+    assert (b[0] >= 0).float().mean() > 0.2
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 

@@ -2,7 +2,8 @@
 point + directional frame, the forward overlay (demo.lvl's light
 billboard), the textured demo world and the forward-only frame against the
 JAX package on the CPU (Pallas kernels in interpret mode), the texture
-capacity monitors, and the refusal of unported configurations."""
+capacity monitors, and the refusal of unported configurations. Each side
+builds its worlds and configurations from its own package."""
 
 import dataclasses
 import os
@@ -12,15 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from tinyrenderer_tpu.config import RenderConfig
+from tinyrenderer_tpu.config import RenderConfig as JRenderConfig
 from tinyrenderer_tpu.render import frame as jframe
 from tinyrenderer_tpu.render.engine import Engine as JEngine
-from tinyrenderer_tpu.scene import demo
+from tinyrenderer_tpu.scene import demo as jdemo
 from tinyrenderer_tpu.utils import verify
+from tinyrenderer_tpu_torch.config import RenderConfig
 from tinyrenderer_tpu_torch.ops import sampling as tsampling
 from tinyrenderer_tpu_torch.render import frame as tframe
 from tinyrenderer_tpu_torch.render import scene_gpu as tscene
 from tinyrenderer_tpu_torch.render.engine import Engine as TEngine
+from tinyrenderer_tpu_torch.scene import demo
 
 LEVEL = os.path.join(os.path.dirname(os.path.dirname(__file__)), "levels",
                      "demo.lvl")
@@ -29,12 +32,29 @@ CFG = RenderConfig(width=256, height=128, tile_h=16, tile_w=128,
                    shadow_bin_capacity=128, env_size=32)
 
 
+def _jcfg(cfg) -> JRenderConfig:
+    return JRenderConfig(**dataclasses.asdict(cfg))
+
+
+def _tcfg(cfg) -> RenderConfig:
+    return RenderConfig(**dataclasses.asdict(cfg))
+
+
 def _jax_engine(scene: str) -> JEngine:
     if scene == "level":
-        return JEngine(cfg=CFG, level_path=LEVEL)
+        return JEngine(cfg=_jcfg(CFG), level_path=LEVEL)
     return JEngine.from_world(
+        jdemo.build_demo_world(n_cubes=9, with_point_light=False),
+        camera=jdemo.build_demo_camera(CFG.width, CFG.height), cfg=_jcfg(CFG))
+
+
+def _port_engine(scene: str) -> TEngine:
+    if scene == "level":
+        return TEngine(cfg=CFG, device="cpu", level_path=LEVEL)
+    return TEngine.from_world(
         demo.build_demo_world(n_cubes=9, with_point_light=False),
-        camera=demo.build_demo_camera(CFG.width, CFG.height), cfg=CFG)
+        camera=demo.build_demo_camera(CFG.width, CFG.height), cfg=CFG,
+        device="cpu")
 
 
 def _host(nt) -> dict:
@@ -55,12 +75,13 @@ def _assert_frames_agree(pick, depth, sdr, j_out):
 @pytest.mark.parametrize("scene", ["level", "demo_world"])
 def test_scene_from_numpy_matches_port_pack(scene):
     """State carried across: the JAX pack's arrays, uploaded through
-    scene_from_numpy / lights_from_numpy, equal the port's own pack."""
+    scene_from_numpy / lights_from_numpy, equal the port's own pack of the
+    same world built by the port's own scene modules."""
     je = _jax_engine(scene)
     je.update()
-    te = TEngine(cfg=je.cfg, device="cpu", level_path=None)
-    te.world, te.camera = je.world, je.camera
+    te = _port_engine(scene)
     te.update()
+    assert dataclasses.asdict(te.cfg) == dataclasses.asdict(je.cfg)
     assert te._pack.counts == je._pack.counts
     js = tscene.scene_from_numpy(_host(je._pack.scene), "cpu")
     jl = tscene.lights_from_numpy(_host(je._pack.lights), "cpu")
@@ -76,18 +97,16 @@ def test_engine_frame_matches_jax_engine():
     triangles), the same config on both sides."""
     je = _jax_engine("demo_world")
     j_out = je.run_frame(0.0)
-    te = TEngine.from_world(
-        demo.build_demo_world(n_cubes=9, with_point_light=False),
-        camera=demo.build_demo_camera(CFG.width, CFG.height), cfg=CFG,
-        device="cpu")
+    te = _port_engine("demo_world")
     t_out = te.run_frame(0.0)
-    assert te.cfg == je.cfg     # same derived envelope (lights, forward, tex)
+    # same derived envelope (lights, forward, tex)
+    assert dataclasses.asdict(te.cfg) == dataclasses.asdict(je.cfg)
     assert jframe._use_fused_shading(je.cfg)
     _assert_frames_agree(t_out.pick_id.numpy(), t_out.depth.numpy(),
                          t_out.sdr.numpy(), j_out)
 
 
-def _frames(je: JEngine, cfg: RenderConfig):
+def _frames(je: JEngine, cfg: JRenderConfig):
     """The JAX frame and the port's frame of one packed scene, pool,
     lights, camera, params and environment under ``cfg`` (atlas inline)."""
     env = je._ensure_env()
@@ -103,7 +122,7 @@ def _frames(je: JEngine, cfg: RenderConfig):
         tsampling.pool_from_numpy(vars(pool), "cpu"),
         tscene.lights_from_numpy(_host(je._pack.lights), "cpu"),
         torch.from_numpy(cam), torch.from_numpy(np.array(je.params)), t_env,
-        cfg)
+        _tcfg(cfg))
     return t_out, j_out
 
 
@@ -142,13 +161,16 @@ def test_textured_engine_frame_matches_jax_engine():
     """The demo world with every second cube textured and its point light
     (billboard): the full table, the compacted material sample, K3's
     material plane and the overlay, port engine against JAX engine."""
-    world = lambda: demo.build_demo_world(n_cubes=9, textured_every=2)  # noqa: E731
-    cam = lambda: demo.build_demo_camera(CFG.width, CFG.height)  # noqa: E731
-    je = JEngine.from_world(world(), camera=cam(), cfg=CFG)
+    je = JEngine.from_world(
+        jdemo.build_demo_world(n_cubes=9, textured_every=2),
+        camera=jdemo.build_demo_camera(CFG.width, CFG.height), cfg=_jcfg(CFG))
     j_out = je.run_frame(0.0)
-    te = TEngine.from_world(world(), camera=cam(), cfg=CFG, device="cpu")
+    te = TEngine.from_world(
+        demo.build_demo_world(n_cubes=9, textured_every=2),
+        camera=demo.build_demo_camera(CFG.width, CFG.height), cfg=CFG,
+        device="cpu")
     t_out = te.run_frame(0.0)
-    assert te.cfg == je.cfg
+    assert dataclasses.asdict(te.cfg) == dataclasses.asdict(je.cfg)
     assert te.cfg.any_textured and te.cfg.has_forward
     assert te.cfg.num_point_lights == 1
     _assert_frames_agree(t_out.pick_id.numpy(), t_out.depth.numpy(),
@@ -170,12 +192,12 @@ def test_forward_only_frame_matches_jax():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(fused_shading=False), "item 12"),
-    (dict(render_scale_pct=50), "item 12"),
-    (dict(fused_resolve=True), "item 12"),
+    (dict(sky_block_capacity=256, fused_shading=False), "item 14"),
+    (dict(sky_scale=3), "item 14"),
+    (dict(sky_scale=8, sky_upsample="cubic", use_pallas=False), "item 14"),
     (dict(sky_block_capacity=256, has_forward=False, any_textured=False),
      "item 14"),
-    (dict(fused_resolve=True, forward_only=True), "item 12"),
+    (dict(sky_scale=3, fused_resolve=True, forward_only=True), "item 14"),
     (dict(native_texture_pool=True), "item 14"),
 ])
 def test_render_frame_refuses_unported_branches(change, item):

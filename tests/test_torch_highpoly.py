@@ -3,7 +3,8 @@
 scatter bins on the shadow view. The JAX engine renders one frame on the
 CPU (Pallas kernels in interpret mode); the port renders the same packed
 scene, lights, camera, params and environment under the JAX engine's
-config. Also the engine's stream and big-triangle capacity monitors."""
+config. Also the engine's stream and big-triangle capacity monitors.
+Each side builds its worlds and configurations from its own package."""
 
 import dataclasses
 
@@ -11,16 +12,18 @@ import numpy as np
 import pytest
 import torch
 
-from tinyrenderer_tpu.config import RenderConfig
+from tinyrenderer_tpu.config import RenderConfig as JRenderConfig
 from tinyrenderer_tpu.render import frame as jframe
 from tinyrenderer_tpu.render.engine import Engine as JEngine
-from tinyrenderer_tpu.scene import demo
+from tinyrenderer_tpu.scene import demo as jdemo
 from tinyrenderer_tpu.utils import verify
+from tinyrenderer_tpu_torch.config import RenderConfig
 from tinyrenderer_tpu_torch.ops import raster as traster
 from tinyrenderer_tpu_torch.ops import sampling as tsampling
 from tinyrenderer_tpu_torch.render import frame as tframe
 from tinyrenderer_tpu_torch.render import scene_gpu as tscene
 from tinyrenderer_tpu_torch.render.engine import Engine as TEngine
+from tinyrenderer_tpu_torch.scene import demo
 
 W, H = 256, 128
 # 8x128 tiles as the high-poly bench config; capacities roomy enough that
@@ -29,18 +32,19 @@ CFG = RenderConfig(width=W, height=H, tile_h=8, tile_w=128, shadow_size=128,
                    shadow_tile=128, env_size=32)
 SCENES = {
     # one 78x78 UV sphere, ~12k triangles, seen from close by
-    "highpoly": (lambda: demo.build_highpoly_world(1), (-3.0, 2.5, 0.0),
+    "highpoly": (lambda d: d.build_highpoly_world(1), (-3.0, 2.5, 0.0),
                  dict(bin_capacity=1024, shadow_bin_capacity=8192)),
     # 401 cubes, 4812 triangles: the floor slab goes through the big list
-    "cubes400": (lambda: demo.build_demo_world(n_cubes=400,
-                                               with_point_light=False),
+    "cubes400": (lambda d: d.build_demo_world(n_cubes=400,
+                                              with_point_light=False),
                  None, dict(bin_big_capacity=256, shadow_bin_capacity=4096)),
 }
 
 
-def _camera(eye):
-    """The demo viewpoint, or one at ``eye`` looking at the origin."""
-    cam = demo.build_demo_camera(W, H)
+def _camera(eye, d=demo):
+    """The demo viewpoint, or one at ``eye`` looking at the origin, from
+    the demo module ``d`` of either package."""
+    cam = d.build_demo_camera(W, H)
     if eye is not None:
         cam.position = np.asarray(eye, np.float32)
         cam.look_at(np.zeros(3, np.float32))
@@ -54,10 +58,11 @@ def _host(nt) -> dict:
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_stream_frame_matches_jax_engine(scene):
     make_world, eye, caps = SCENES[scene]
-    je = JEngine.from_world(make_world(), camera=_camera(eye),
-                            cfg=dataclasses.replace(CFG, **caps))
+    je = JEngine.from_world(
+        make_world(jdemo), camera=_camera(eye, jdemo),
+        cfg=JRenderConfig(**{**dataclasses.asdict(CFG), **caps}))
     j_out = je.run_frame(0.0)
-    cfg = je.cfg
+    cfg = RenderConfig(**dataclasses.asdict(je.cfg))
     for k, v in caps.items():        # nothing grew: one frame, one compile
         assert getattr(cfg, k) == v, k
     assert jframe._use_fused_shading(cfg) and cfg.stream_raster
@@ -90,7 +95,7 @@ def test_stream_raster_off_takes_scatter_bins():
     on the main view, as the reference; the frame equals the stream
     frame wherever no bin overflows."""
     make_world, eye, caps = SCENES["cubes400"]
-    te = TEngine.from_world(make_world(), camera=_camera(eye),
+    te = TEngine.from_world(make_world(demo), camera=_camera(eye),
                             cfg=dataclasses.replace(CFG, **caps), device="cpu")
     te.update()
     env = te._ensure_env()

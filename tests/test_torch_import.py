@@ -1,40 +1,64 @@
-"""The port imports torch and never jax, and CPU tensors never reach the
-CUDA kernel library."""
+"""The port imports torch and never jax nor anything of the JAX package
+(it keeps its own copies of the JAX-free modules), and CPU tensors never
+reach the CUDA kernel library."""
 
+import ast
+import os
+import pkgutil
 import subprocess
 import sys
 
 import numpy as np
 import torch
 
+import tinyrenderer_tpu_torch
 from tinyrenderer_tpu_torch import kernels
 from tinyrenderer_tpu_torch.ops import raster, resolve, sampling, shading
 
-PORT_MODULES = [
-    "tinyrenderer_tpu_torch", "tinyrenderer_tpu_torch.kernels",
-    "tinyrenderer_tpu_torch.shared",
-    "tinyrenderer_tpu_torch.ops.fp", "tinyrenderer_tpu_torch.ops.raster",
-    "tinyrenderer_tpu_torch.ops.resolve", "tinyrenderer_tpu_torch.ops.compact",
-    "tinyrenderer_tpu_torch.ops.shadows", "tinyrenderer_tpu_torch.ops.sampling",
-    "tinyrenderer_tpu_torch.ops.env", "tinyrenderer_tpu_torch.ops.post",
-    "tinyrenderer_tpu_torch.ops.shading",
-    "tinyrenderer_tpu_torch.render.scene_gpu",
-    "tinyrenderer_tpu_torch.render.frame",
-    "tinyrenderer_tpu_torch.render.engine",
-]
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_MODULES = ["tinyrenderer_tpu_torch"] + sorted(
+    m.name for m in pkgutil.walk_packages(tinyrenderer_tpu_torch.__path__,
+                                          "tinyrenderer_tpu_torch."))
+FORBIDDEN = ("jax", "jaxlib", "tinyrenderer_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
 def test_port_never_imports_jax():
+    """Every module of the port, the copies of the JAX-free modules
+    included, imports in a fresh interpreter without jax, jaxlib or any
+    module of the JAX package entering sys.modules."""
+    assert {"tinyrenderer_tpu_torch.config",
+            "tinyrenderer_tpu_torch.scene.demo",
+            "tinyrenderer_tpu_torch.assets.native",
+            "tinyrenderer_tpu_torch.utils.verify"} <= set(PORT_MODULES)
+    assert "tinyrenderer_tpu_torch.shared" not in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'jaxlib', 'tinyrenderer_tpu.render', 'tinyrenderer_tpu.ops',"
-            " 'tinyrenderer_tpu.parallel')))\n"
+            f"bad = sorted(m for m in sys.modules if any(m == f or "
+            f"m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_never_imports_jax():
+    """chip_smoke.py names neither jax nor the JAX package in any import
+    statement (read from its syntax tree, not run: it needs a card)."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "tinyrenderer_tpu_torch.render.engine" in names
+    assert not [n for n in names if _forbidden(n)], names
 
 
 def test_cpu_tensors_take_plain_versions():
@@ -47,6 +71,9 @@ def test_cpu_tensors_take_plain_versions():
                        overflow=torch.tensor(8), big_overflow=torch.tensor(0))
     tid, depth = raster.rasterize_binned(bins, 8, 128)
     assert tid.shape == (8, 256) and (tid == -1).all() and (depth == 0).all()
+    tid, depth, sel = raster.rasterize_resolve_binned(
+        bins, torch.ones((3, resolve.ROW_D)), 8, 128)
+    assert sel.shape == (8, 256, resolve.ROW_D) and (sel == 0).all()
     table = torch.from_numpy(rng.standard_normal((4, resolve.ROW_D_SLIM),
                                                  dtype=np.float32))
     outf, outh = resolve.select_eval(torch.zeros((8, 16), dtype=torch.int32),
@@ -64,4 +91,4 @@ def test_cpu_tensors_take_plain_versions():
     assert tap.shape == (4, 9) and (tap == 0).all()
     assert kernels._lib is None
     assert (raster.K1_LAUNCHES, resolve.K2_LAUNCHES, shading.K3_LAUNCHES,
-            sampling.K7_LAUNCHES) == (0, 0, 0, 0)
+            raster.K6_LAUNCHES, sampling.K7_LAUNCHES) == (0, 0, 0, 0, 0)

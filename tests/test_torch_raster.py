@@ -50,6 +50,23 @@ def test_triangle_setup_matches(cull):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("W,H", [(256, 96), (1536, 832), (1920, 1088)])
+@pytest.mark.parametrize("cull", ["back", "none"])
+def test_triangle_setup_bit_equal_at_any_size(W, H, cull):
+    """Padded sizes that are not powers of two (the 75% frame, 1080p): the
+    compiled setup fuses the screen scaling into the corner differences,
+    and the port follows it, so every output is bit-equal."""
+    clip, vidx, mask = _clip_tris(5, 200)
+    j = jax.jit(jraster.triangle_setup, static_argnums=(3, 4, 5))(
+        jnp.asarray(clip), jnp.asarray(vidx), jnp.asarray(mask), W, H, cull)
+    t = traster.triangle_setup(_t(clip), _t(vidx), _t(mask), W, H, cull)
+    assert np.asarray(j.valid).mean() > 0.2
+    for name in ("valid", "rows", "bbox", "screen", "inv_w", "z_ndc"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.asarray(getattr(j, name)),
+                                      err_msg=name)
+
+
 @pytest.mark.parametrize("capacity", [128, 32])   # sort branch, top_k branch
 def test_bin_triangles_dense_matches(capacity):
     clip, vidx, mask = _clip_tris(2, 80)

@@ -1,4 +1,4 @@
-// K1 and K4: tiled visibility raster.
+// K1, K4 and K6: tiled visibility raster.
 //
 // K1 replaces the TPU kernel tinyrenderer_tpu/ops/raster.py::_raster_kernel
 // (launcher rasterize_binned): the bin of a tile is its first counts[t]
@@ -8,23 +8,37 @@
 // of rows, [start, min(end, (start / kb + nb) * kb)) with start, end =
 // starts[t], starts[t + 1] -- exactly the rows the reference's nb grid
 // steps of kb-row blocks reach, so a segment longer than the walk loses
-// the same tail. Both evaluate the three edge planes and the depth plane
-// of every 16-float setup row at the pixel centres, keep a pixel where all
-// edges are >= 0 and the id is > 0, and run a reverse-Z max-depth race
-// with ties broken by the larger id.
+// the same tail. K6 replaces tinyrenderer_tpu/ops/raster.py::
+// _raster_resolve_kernel (launcher rasterize_resolve_binned, the
+// fused_resolve configuration): K1's race over dense bins, then the
+// winner's row of the (T, D) resolve table. All three evaluate the three
+// edge planes and the depth plane of every 16-float setup row at the pixel
+// centres, keep a pixel where all edges are >= 0 and the id is > 0, and
+// run a reverse-Z max-depth race with ties broken by the larger id.
 //
-// What bounds them on the H100: arithmetic. Each pixel evaluates 4 planes
+// What bounds K1 and K4 on the H100: arithmetic. Each pixel evaluates 4 planes
 // per row of its tile's bin (K = 256 rows x 2 M pixels at 1080p is ~2 G
 // plane evaluations), while the rows are a few MB. Design: one thread per
 // pixel keeps best_z / best_id in registers; a block covers kThreads
 // pixels of one tile (a 128 x 128 shadow tile has 16384 pixels, more than
 // a block may hold) and stages the tile's rows through shared memory
-// kChunk rows at a time (race_rows, shared by both kernels), so every row
+// kChunk rows at a time (race_rows, shared by all three), so every row
 // is read from device memory once per block and broadcast from shared
 // memory. A tile of P pixels spans P / kThreads blocks that each stage the
 // same rows: at the high-poly main view's 8 x 128 tiles every segment is
 // read from L2 four times, which is what bounds K4 beside the plane
 // arithmetic. Results go straight into the untiled (H', W') image.
+//
+// K6 is bound by bytes instead: at 1088 x 1920 it writes a D = 53 float
+// row a pixel (443 MB), against a few MB of bins. The TPU kernel carries
+// the winner's row through the race with a one-hot matrix product over the
+// tile's pre-gathered table rows; here the race is K1's (race_rows) and
+// only its result picks the row: table[best_id - 1], read through the
+// read-only cache (the table is small and stays in L2). The block writes
+// its pixels' rows together, thread k of the block writing float k of the
+// block's rows, so that the stores of a warp are contiguous (a tile row of
+// pixels is contiguous in the (H', W', D) output). Background pixels get
+// zeros, as the reference's empty one-hot sum.
 //
 // Semantics follow the Pallas kernels, not the jnp reference: the race
 // starts from best_z = 0, so a covered pixel whose depth is exactly 0
@@ -128,6 +142,40 @@ raster_stream_kernel(const int* __restrict__ starts,
   pix.store(tri_id, depth, tile_h, tile_w, width, best_z, best_id);
 }
 
+__global__ void __launch_bounds__(kThreads)
+raster_resolve_kernel(const int* __restrict__ counts,
+                      const float* __restrict__ rows,
+                      const float* __restrict__ table, int* __restrict__ tri_id,
+                      float* __restrict__ depth, float* __restrict__ sel,
+                      int tiles_x, int tile_h, int tile_w, int K, int width,
+                      int T, int D, int mxu_order) {
+  __shared__ float srow[kChunk * kCols];
+  __shared__ int swin[kThreads];
+  const int t = blockIdx.x;
+  const Pixel pix(t, tiles_x, tile_h, tile_w);
+  const int count = min(max(counts[t], 0), K);
+  float best_z = 0.0f, best_id = 0.0f;
+  race_rows(rows + (size_t)t * K * kCols, count, pix.active, pix.px, pix.py,
+            mxu_order != 0, srow, best_z, best_id);
+  pix.store(tri_id, depth, tile_h, tile_w, width, best_z, best_id);
+  swin[threadIdx.x] = (int)best_id - 1;
+  __syncthreads();
+  const int p0 = blockIdx.y * kThreads;
+  const int n = min(kThreads, tile_h * tile_w - p0);   // pixels of the block
+  for (int k = threadIdx.x; k < n * D; k += kThreads) {
+    const int q = k / D;
+    const int j = k - q * D;
+    const int p = p0 + q;
+    const int ly = p / tile_w;
+    const int lx = p - ly * tile_w;
+    const int id = swin[q];
+    const float v = (id >= 0 && id < T) ? __ldg(table + (size_t)id * D + j)
+                                        : 0.0f;
+    sel[((size_t)(pix.ty * tile_h + ly) * width + pix.tx * tile_w + lx) * D +
+        j] = v;
+  }
+}
+
 }  // namespace
 
 extern "C" int tr_raster(const void* counts, const void* rows, void* tri_id,
@@ -152,5 +200,19 @@ extern "C" int tr_raster_stream(const void* starts, const void* rows,
   raster_stream_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)starts, (const float*)rows, (int*)tri_id, (float*)depth,
       tiles_x, tile_h, tile_w, kb, nb, width, mxu_order);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tr_raster_resolve(const void* counts, const void* rows,
+                                 const void* table, void* tri_id, void* depth,
+                                 void* sel, int n_tiles, int tiles_x,
+                                 int tile_h, int tile_w, int K, int width,
+                                 int T, int D, int mxu_order, void* stream) {
+  const int P = tile_h * tile_w;
+  dim3 grid(n_tiles, (P + kThreads - 1) / kThreads);
+  raster_resolve_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)counts, (const float*)rows, (const float*)table,
+      (int*)tri_id, (float*)depth, (float*)sel, tiles_x, tile_h, tile_w, K,
+      width, T, D, mxu_order);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """Build and load the hand-written Hopper kernels.
 
-The CUDA sources under ``csrc/`` (K1 + K4 ``raster.cu``, K2 + K5
+The CUDA sources under ``csrc/`` (K1 + K4 + K6 ``raster.cu``, K2 + K5
 ``select_eval.cu``, K3 ``shade.cu``, K7 ``sampling.cu``) have a plain C
 interface. Each is compiled by its own ``nvcc`` process, all started
 together, and the objects are linked into
@@ -47,6 +47,10 @@ SIGNATURES = {
     # nb, width, mxu_order, stream
     "tr_raster_stream": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P),
+    # counts, rows, table, tri_id, depth, sel, n_tiles, tiles_x, tile_h,
+    # tile_w, K, width, T, D, mxu_order, stream
+    "tr_raster_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P),
     # tri_id, table, outf, outh, H, W, T, D, n_attr, h_bf16, stream
     "tr_select_eval": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # tri_id, starts, ids, table, outf, outh, H, W, D, n_attr, h_bf16,

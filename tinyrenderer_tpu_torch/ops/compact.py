@@ -13,6 +13,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import sampling
 
@@ -86,6 +87,15 @@ def scatter_blocks(work: torch.Tensor, plan: BlockPlan,
     mask = (plan.inv >= 0).reshape((-1,) + (1,) * (work.ndim - 1))
     return torch.where(mask, out,
                        torch.full((), fill, dtype=out.dtype, device=out.device))
+
+
+def dilate_mask(mask: torch.Tensor) -> torch.Tensor:
+    """(H, W) bool -> its 3x3 max-dilation (no wrap at the edges): widens a
+    block-selection mask so that a bilinear upsample of a strided sample
+    never reads an unselected (zeroed) neighbour."""
+    m = mask
+    m = m | F.pad(m[:-1], (0, 0, 1, 0)) | F.pad(m[1:], (0, 0, 0, 1))
+    return m | F.pad(m[:, :-1], (1, 0)) | F.pad(m[:, 1:], (0, 1))
 
 
 def _blocks_needed(need: torch.Tensor, bh: int, bw: int) -> torch.Tensor:

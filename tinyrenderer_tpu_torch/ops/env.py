@@ -1,6 +1,6 @@
 """Environment (port of the ops/env.py parts on the frame path):
-equirect -> cubemap bake, the SH-9 projection of the irradiance map, and
-the per-pixel skybox."""
+equirect -> cubemap bake, the SH-9 projection of the irradiance map and
+its evaluation at normals, and the per-pixel skybox."""
 
 from __future__ import annotations
 
@@ -82,6 +82,12 @@ def sh_project_cubemap(cube: torch.Tensor) -> torch.Tensor:
     basis = _sh_basis(sampling.face_texel_dirs(size, dev))        # (6,S,S,9)
     coeffs = torch.einsum("fijk,fijc,fij->kc", basis, cube, w)
     return coeffs * (4.0 * math.pi / w.sum())
+
+
+def sh_eval_irradiance(sh: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """SH-9 coefficients (9, 3) of an irradiance signal evaluated at the
+    normals n (..., 3) -> (..., 3)."""
+    return _sh_basis(n) @ sh
 
 
 def skybox_colors(env_cube: torch.Tensor, proj_inv: torch.Tensor,

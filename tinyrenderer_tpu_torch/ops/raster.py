@@ -11,9 +11,11 @@
    tile-major sorted (tile, id) stream, segments located by ``starts``).
 3. The tile raster, per pixel a reverse-Z max-depth race over the tile's
    bin, ties broken by the larger id, output ``tri_id`` (-1 = background)
-   and depth: ``rasterize_binned`` over dense bins (kernel K1) and
-   ``rasterize_stream`` over the stream's walked windows (kernel K4), both
-   in ``csrc/raster.cu``.
+   and depth: ``rasterize_binned`` over dense bins (kernel K1),
+   ``rasterize_stream`` over the stream's walked windows (kernel K4) and
+   ``rasterize_resolve_binned`` (kernel K6: K1's race plus the winner's
+   resolve-table row, the ``fused_resolve`` configuration), all in
+   ``csrc/raster.cu``.
 
 Depth is reverse-Z in (0, 1], cleared to 0. Front faces are CCW in NDC,
 which is a negative signed area in the y-down screen space.
@@ -48,6 +50,7 @@ STREAM_BLOCK = 2048
 
 K1_LAUNCHES = 0   # CUDA launches of the raster kernel
 K4_LAUNCHES = 0   # CUDA launches of the stream raster kernel
+K6_LAUNCHES = 0   # CUDA launches of the raster + resolve kernel
 
 
 @dataclass
@@ -105,6 +108,18 @@ def transform_vertices(positions: torch.Tensor, vert_instance: torch.Tensor,
     return torch.stack([wx, wy, wz], dim=1), torch.stack(clip, dim=1)
 
 
+def _screen_diffs(v: torch.Tensor, p: torch.Tensor, size: int,
+                  pairs: list, swapped: tuple) -> torch.Tensor:
+    """(T, len(pairs) + 1) corner differences p_a - p_b of screen
+    coordinates p = v * size, rounded as the reference's compiled setup
+    rounds them: ``fma(v_a, size, -p_b)`` for each (a, b) of ``pairs``,
+    then ``fma(-v_b, size, p_a)`` for the ``swapped`` pair."""
+    a, b = swapped
+    mul = torch.stack([v[:, i] for i, _ in pairs] + [-v[:, b]], 1)
+    add = torch.stack([-p[:, j] for _, j in pairs] + [p[:, a]], 1)
+    return fma(mul, v.new_tensor(float(size)), add)
+
+
 def triangle_setup(clip: torch.Tensor, tri_vidx: torch.Tensor,
                    tri_mask: torch.Tensor, width: int, height: int,
                    cull: str = "back") -> TriangleSetup:
@@ -118,15 +133,25 @@ def triangle_setup(clip: torch.Tensor, tri_vidx: torch.Tensor,
     w_ok = (ws[0] > W_EPS) & (ws[1] > W_EPS) & (ws[2] > W_EPS)
     inv_ws = [1.0 / torch.where(w.abs() > W_EPS, w, torch.ones_like(w))
               for w in ws]
-    sxs = [(c[:, 0] * iw * 0.5 + 0.5) * width for c, iw in zip(cs, inv_ws)]
-    sys_ = [(0.5 - c[:, 1] * iw * 0.5) * height for c, iw in zip(cs, inv_ws)]
+    # corners in [0, 1] viewport units, then screen (T, 3): v * size
+    vx = torch.stack([c[:, 0] * iw * 0.5 + 0.5 for c, iw in zip(cs, inv_ws)], 1)
+    vy = torch.stack([0.5 - c[:, 1] * iw * 0.5 for c, iw in zip(cs, inv_ws)], 1)
+    sx, sy = vx * width, vy * height
     zs = [c[:, 2] * iw for c, iw in zip(cs, inv_ws)]
 
-    x0, x1, x2 = sxs
-    y0, y1, y2 = sys_
+    x0, x1, x2 = sx.unbind(1)
+    y0, y1, y2 = sy.unbind(1)
     # products that feed a sum are fused as the reference's compiled frame
-    # fuses them (ops/fp.py); the unfused form differs in the last bit
-    area2 = fma(x1 - x0, y2 - y0, -((x2 - x0) * (y1 - y0)))
+    # fuses them (ops/fp.py); the unfused form differs in the last bit.
+    # Corner differences fuse the scaling: x_a - x_b = fma(vx_a, width,
+    # -x_b), except the depth planes' own copies of x2 - x1 and y1 - y2,
+    # which fuse the other product (exact alike when the size is a power
+    # of two)
+    dx10, dx20, dx21, dx02, dx21z = _screen_diffs(
+        vx, sx, width, [(1, 0), (2, 0), (2, 1), (0, 2)], (2, 1)).unbind(1)
+    dy20, dy10, dy12, dy01, dy12z = _screen_diffs(
+        vy, sy, height, [(2, 0), (1, 0), (1, 2), (0, 1)], (1, 2)).unbind(1)
+    area2 = fma(dx10, dy20, -(dx20 * dy10))
     if cull == "back":
         face_ok = area2 < 0.0
     elif cull == "front":
@@ -138,14 +163,14 @@ def triangle_setup(clip: torch.Tensor, tri_vidx: torch.Tensor,
     big = area2.abs() > 1e-12
     valid = tri_mask & w_ok & face_ok & big
     inv_area = 1.0 / torch.where(big, area2, torch.ones_like(area2))
-    e0x, e0y = (y1 - y2) * inv_area, (x2 - x1) * inv_area
+    e0x, e0y = dy12 * inv_area, dx21 * inv_area
     e0c = fma(x1, y2, -(x2 * y1)) * inv_area
-    e1x, e1y = (y2 - y0) * inv_area, (x0 - x2) * inv_area
+    e1x, e1y = dy20 * inv_area, dx02 * inv_area
     e1c = fma(x2, y0, -(x0 * y2)) * inv_area
-    e2x, e2y = (y0 - y1) * inv_area, (x1 - x0) * inv_area
+    e2x, e2y = dy01 * inv_area, dx10 * inv_area
     e2c = fma(x0, y1, -(x1 * y0)) * inv_area
-    zx = fma(e2x, zs[2], fma(e1x, zs[1], e0x * zs[0]))
-    zy = affine3(e0y, zs[0], e1y, zs[1], e2y, zs[2])
+    zx = fma(e2x, zs[2], fma(e1x, zs[1], (dy12z * inv_area) * zs[0]))
+    zy = affine3(dx21z * inv_area, zs[0], e1y, zs[1], e2y, zs[2])
     zc = fma(e2c, zs[2], fma(e1c, zs[1], e0c * zs[0]))
     idf = torch.arange(1, tri_vidx.shape[0] + 1, dtype=F32,
                        device=clip.device)
@@ -153,12 +178,9 @@ def triangle_setup(clip: torch.Tensor, tri_vidx: torch.Tensor,
                         zx, zy, zc, idf, inv_ws[0], inv_ws[1], inv_ws[2]],
                        dim=1)
     rows = torch.where(valid[:, None], rows, torch.zeros_like(rows))
-    bbox = torch.stack([torch.minimum(torch.minimum(x0, x1), x2),
-                        torch.minimum(torch.minimum(y0, y1), y2),
-                        torch.maximum(torch.maximum(x0, x1), x2),
-                        torch.maximum(torch.maximum(y0, y1), y2)], dim=1)
-    screen = torch.stack([torch.stack(sxs, dim=1), torch.stack(sys_, dim=1)],
-                         dim=2)                                  # (T, 3, 2)
+    bbox = torch.stack([sx.amin(1), sy.amin(1), sx.amax(1), sy.amax(1)],
+                       dim=1)
+    screen = torch.stack([sx, sy], dim=2)                        # (T, 3, 2)
     return TriangleSetup(rows=rows, valid=valid, bbox=bbox, screen=screen,
                          inv_w=torch.stack(inv_ws, dim=1),
                          z_ndc=torch.stack(zs, dim=1))
@@ -440,6 +462,63 @@ def rasterize_binned(bins: Bins, tile_h: int, tile_w: int
     kernels.check("tr_raster", code)
     K1_LAUNCHES += 1
     return tri_id, depth
+
+
+def rasterize_resolve_binned_ref(bins: Bins, table: torch.Tensor,
+                                 tile_h: int, tile_w: int, chunk: int = 32
+                                 ) -> tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Plain PyTorch version of K6 (any device): :func:`rasterize_binned_ref`
+    and the winner's row of the (T, D) resolve table, zeros on background.
+
+    The reference carries the row through the race as a one-hot matrix
+    product over the tile's bin; the product has one non-zero term, so the
+    row is copied exactly."""
+    tri_id, depth = rasterize_binned_ref(bins, tile_h, tile_w, chunk)
+    T = table.shape[0]
+    sel = table[tri_id.clamp(0, T - 1).long()]
+    sel = torch.where((tri_id >= 0)[..., None], sel,
+                      torch.zeros((), dtype=table.dtype, device=table.device))
+    return tri_id, depth, sel
+
+
+def rasterize_resolve_binned(bins: Bins, table: torch.Tensor, tile_h: int,
+                             tile_w: int) -> tuple[torch.Tensor, torch.Tensor,
+                                                   torch.Tensor]:
+    """Fused visibility raster + resolve-row selection -> (tri_id (H', W')
+    i32, depth (H', W') f32, sel (H', W', D) f32): :func:`rasterize_binned`
+    and each pixel's winning row of the (T, D) table (zeros on background).
+
+    CPU tensors take :func:`rasterize_resolve_binned_ref`; CUDA tensors
+    launch K6."""
+    if bins.rows.device.type == "cpu":
+        return rasterize_resolve_binned_ref(bins, table, tile_h, tile_w)
+    global K6_LAUNCHES
+    ty, tx, K, cols = bins.rows.shape
+    T, D = table.shape
+    if (cols != SETUP_COLS or bins.rows.dtype != F32 or table.dtype != F32
+            or T == 0 or tuple(bins.counts.shape) != (ty, tx)):
+        raise ValueError(f"raster + resolve takes (ty, tx, K, 16) f32 rows, "
+                         f"(ty, tx) counts and a non-empty (T, D) f32 table, "
+                         f"got {tuple(bins.rows.shape)} {bins.rows.dtype}, "
+                         f"{tuple(bins.counts.shape)}, {tuple(table.shape)} "
+                         f"{table.dtype}")
+    counts = bins.counts.to(I32).contiguous()
+    rows = bins.rows.contiguous()
+    table = table.contiguous()
+    kernels.require_cuda("rasterize_resolve_binned", counts, rows, table)
+    H, W = ty * tile_h, tx * tile_w
+    tri_id = torch.empty((H, W), dtype=I32, device=rows.device)
+    depth = torch.empty((H, W), dtype=F32, device=rows.device)
+    sel = torch.empty((H, W, D), dtype=F32, device=rows.device)
+    code = kernels.library().tr_raster_resolve(
+        counts.data_ptr(), rows.data_ptr(), table.data_ptr(),
+        tri_id.data_ptr(), depth.data_ptr(), sel.data_ptr(), ty * tx, tx,
+        tile_h, tile_w, K, W, T, D, int(tile_h * tile_w > _VPU_PLANES_MAX_P),
+        kernels.stream_handle(rows.device))
+    kernels.check("tr_raster_resolve", code)
+    K6_LAUNCHES += 1
+    return tri_id, depth, sel
 
 
 def stream_walk(Ls: int, kmax: int) -> tuple[int, int]:

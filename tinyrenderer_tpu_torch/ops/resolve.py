@@ -1,6 +1,8 @@
 """Visibility-buffer resolve (port of ops/resolve.py): the per-triangle
-resolve table and select + eval over dense bins (kernel K2) and over CSR
-stream bins (kernel K5), both in ``csrc/select_eval.cu``.
+resolve table, select + eval over dense bins (kernel K2) and over CSR
+stream bins (kernel K5), both in ``csrc/select_eval.cu``, the evaluation of
+selected rows (K6's output), and the GBuffer assembly of the unfused
+chain (material sample and normal mapping).
 
 Every per-triangle quantity folds into one table row: the 1/w denominator
 plane, the attribute numerator planes (affine in screen space) as three
@@ -34,6 +36,19 @@ ROW_D_SLIM = 3 * (N_ATTR_SLIM + 1) + 7   # slim flat-only layout: 28
 
 K2_LAUNCHES = 0    # CUDA launches of the select + eval kernel
 K5_LAUNCHES = 0    # CUDA launches of the stream select + eval kernel
+
+
+@dataclass
+class GBuffer:
+    """The unfused chain's per-pixel surface: zero where ``mask`` is off."""
+
+    position: torch.Tensor        # (H, W, 3) world position
+    normal: torch.Tensor          # (H, W, 3) normal-mapped shading normal
+    albedo: torch.Tensor          # (H, W, 3)
+    rough_metal_ao: torch.Tensor  # (H, W, 3)
+    depth: torch.Tensor           # (H, W) reverse-Z
+    object_id: torch.Tensor       # (H, W) i32, 0 = none
+    mask: torch.Tensor            # (H, W) bool: geometry present
 
 
 @dataclass
@@ -294,6 +309,16 @@ def resolve_attrs_from_sel_at(tri_id: torch.Tensor, sel: torch.Tensor,
         valid=valid)
 
 
+def resolve_attrs_from_sel(tri_id: torch.Tensor,
+                           sel: torch.Tensor) -> ResolvedAttrs:
+    """Evaluate each pixel's selected full-layout row sel (H, W, 53) at its
+    pixel centre (the fused raster + resolve path, K6's output)."""
+    H, W = tri_id.shape
+    px = torch.arange(W, dtype=F32, device=sel.device)[None, :, None] + 0.5
+    py = torch.arange(H, dtype=F32, device=sel.device)[:, None, None] + 0.5
+    return resolve_attrs_from_sel_at(tri_id, sel, px, py)
+
+
 def _attrs_from_split(tri_id: torch.Tensor, outf_c: torch.Tensor,
                       outh_c: torch.Tensor) -> ResolvedAttrs:
     """ResolvedAttrs (channel-last fields) from select + eval's split
@@ -324,7 +349,10 @@ def _attrs_from_split(tri_id: torch.Tensor, outf_c: torch.Tensor,
 
 def resolve_attrs_pallas(tri_id: torch.Tensor, table: torch.Tensor,
                          bf16: bool = False) -> ResolvedAttrs:
-    """ResolvedAttrs through select + eval over dense bins (K2)."""
+    """ResolvedAttrs through select + eval over dense bins (K2). With
+    ``bf16`` off it is also the reference's kernel-free tiled resolve
+    (``resolve_attrs_tiled``, ``use_pallas=False``): that one-hot product
+    over the tile's bin copies the winner's row exactly."""
     return _attrs_from_split(tri_id, *select_eval(tri_id, table, bf16))
 
 
@@ -432,3 +460,67 @@ def forward_overlay_compose(hdr: torch.Tensor, pick: torch.Tensor,
     pick_f[lin] = torch.where(valid & (alpha > 0.5), oid, pick_f[lin])
     return (hdr_f[:H * W].reshape(H, W, 3), pick_f[:H * W].reshape(H, W),
             plan.needed)
+
+
+# ---- GBuffer assembly of the unfused chain ---------------------------------
+
+def resolve_gbuffer_from_attrs(r: ResolvedAttrs, tri_id: torch.Tensor,
+                               depth: torch.Tensor,
+                               pool: sampling.TexturePoolGPU,
+                               texture_filter: str = "dithered",
+                               texture_scale: int = 1,
+                               tex_block_capacity: int = 0,
+                               sample_textures: bool = True
+                               ) -> tuple[GBuffer, torch.Tensor]:
+    """Material evaluation + GBuffer assembly -> (GBuffer, () i32 blocks
+    the compacted material sample wanted).
+
+    The composite record pool holds [albedo rgba | normal rgb | rough |
+    metal] a texel, so the whole material is one mip-filtered sample,
+    block-compacted onto the textured pixels. ``texture_scale`` s > 1
+    samples every s-th pixel in both axes on the blocks of a dilated
+    textured mask and upsamples bilinearly (integer factor).
+    ``sample_textures`` False (a statically flat-only scene) takes the
+    flat parameters and the geometric normal."""
+    valid = r.valid
+    vm = valid[..., None]
+    zero = torch.zeros((), device=depth.device)
+
+    def assemble(normal, albedo, rough, metal, needed):
+        rma = torch.stack([rough, metal, torch.ones_like(rough)], dim=-1)
+        return GBuffer(position=torch.where(vm, r.world, zero),
+                       normal=torch.where(vm, normal, zero),
+                       albedo=torch.where(vm, albedo, zero),
+                       rough_metal_ao=torch.where(vm, rma, zero), depth=depth,
+                       object_id=r.object_id, mask=valid), needed
+
+    flat = r.flat
+    if not sample_textures:
+        return assemble(r.normal, flat[..., 0:3], flat[..., 3], flat[..., 4],
+                        torch.zeros((), dtype=I32, device=depth.device))
+    use_tex = flat[..., 5] > 0.5
+    if texture_scale > 1:
+        s = texture_scale
+        H, W = tri_id.shape
+        uv_lo, rec_lo = r.uv[::s, ::s], r.record[::s, ::s]
+        need_lo = compact.dilate_mask(
+            compact.to_blocks(use_tex & valid, s, s).flatten(1).any(dim=1)
+            .reshape(H // s, W // s))
+        level = sampling.mip_level_from_uv(uv_lo, pool.level_sizes[0])
+        rec, needed = compact.sample_pool_compacted(
+            pool, rec_lo, uv_lo, level, need_lo, tex_block_capacity,
+            filter=texture_filter)
+        rec = post.upsample_bilinear_int(rec, s, s)
+    else:
+        level = sampling.mip_level_from_uv(r.uv, pool.level_sizes[0])
+        rec, needed = compact.sample_pool_compacted(
+            pool, r.record, r.uv, level, use_tex & valid, tex_block_capacity,
+            filter=texture_filter)
+    nt = rec[..., 4:7] * 2.0 - 1.0
+    n_mapped = _safe_normalize(fma(nt[..., 2:3], r.normal, fma(
+        nt[..., 0:1], r.tangent, nt[..., 1:2] * r.bitangent)))
+    u = use_tex[..., None]
+    return assemble(torch.where(u, n_mapped, r.normal),
+                    torch.where(u, rec[..., 0:3], flat[..., 0:3]),
+                    torch.where(use_tex, rec[..., 7], flat[..., 3]),
+                    torch.where(use_tex, rec[..., 8], flat[..., 4]), needed)

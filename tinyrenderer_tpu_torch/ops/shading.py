@@ -1,8 +1,9 @@
-"""Fused deferred shading (port of the fused path of ops/shading.py):
-kernel K3, ``csrc/shade.cu``.
+"""Deferred shading (port of ops/shading.py): the Cook-Torrance core
+over GBuffer maps (``shade_deferred``, the unfused chain) and the fused
+pass, kernel K3, ``csrc/shade.cu``.
 
-One pass over the select + eval outputs, the material sample, the shadow
-gates and the sky: normalize the geometric normal (and, on textured
+The fused pass is one pass over the select + eval outputs, the material
+sample, the shadow gates and the sky: normalize the geometric normal (and, on textured
 scenes, the tangent frame: the tangent-space normal map and the choice
 between the sampled and the flat material by ``use_tex``), evaluate
 Cook-Torrance per point light (inverse-square falloff) and per
@@ -18,7 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import kernels
-from .env import _SH_C
+from .env import _SH_C, sh_eval_irradiance
 from .fp import fma, sqrt
 
 F32 = torch.float32
@@ -52,6 +53,116 @@ def pack_shading_consts(camera_pos: torch.Tensor, lights: ShadingLights,
         parts.append(irradiance_sh.reshape(-1))
     return torch.cat(parts).to(F32)
 
+
+# ---- the unfused chain: (H, W, 3) maps, formulas of main.wgsl ----------
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over the last (3-wide) axis of a * b, keepdim, rounded as the
+    reference's reduction: ``fma(a2, b2, fma(a1, b1, a0 * b0))``."""
+    return fma(a[..., 2:3], b[..., 2:3],
+               fma(a[..., 1:2], b[..., 1:2], a[..., 0:1] * b[..., 0:1]))
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    return v / sqrt(_dot(v, v)).clamp(min=1e-12)
+
+
+def fresnel_schlick(cos_theta, f0):
+    return f0 + (1.0 - f0) * _pow5((1.0 - cos_theta).clamp(0.0, 1.0))
+
+
+def fresnel_schlick_roughness(cos_theta, f0, roughness):
+    return f0 + (torch.maximum(1.0 - roughness, f0) - f0) * _pow5(
+        (1.0 - cos_theta).clamp(0.0, 1.0))
+
+
+def distribution_ggx(n_dot_h, roughness):
+    r2 = roughness * roughness
+    r4 = r2 * r2
+    denom = fma(n_dot_h * n_dot_h, r4 - 1.0, torch.ones_like(r4))
+    return r4 / (PI * denom * denom)
+
+
+def geometry_schlick_ggx(n_dot_v, roughness):
+    r = roughness + 1.0
+    k = r * r / 8.0
+    return n_dot_v / (n_dot_v * (1.0 - k) + k)
+
+
+def geometry_smith(n_dot_v, n_dot_l, roughness):
+    return (geometry_schlick_ggx(n_dot_v, roughness)
+            * geometry_schlick_ggx(n_dot_l, roughness))
+
+
+def light_contribution(pixel_to_light, light_color, attenuation,
+                       pixel_to_camera, normal, albedo, metalness, roughness):
+    """One light's Cook-Torrance term (main.wgsl:165-189), (..., 3) and
+    (..., 1) maps."""
+    half_dir = _normalize(pixel_to_camera + pixel_to_light)
+    radiance = light_color * attenuation
+    f0 = F0_NON_METALLIC * (1.0 - metalness) + albedo * metalness
+    f = fresnel_schlick(_dot(half_dir, pixel_to_camera).clamp(min=0.0), f0)
+    n_dot_h = _dot(normal, half_dir).clamp(min=0.0)
+    n_dot_v = _dot(normal, pixel_to_camera).clamp(min=0.0)
+    n_dot_l = _dot(normal, pixel_to_light).clamp(min=0.0)
+    ndf = distribution_ggx(n_dot_h, roughness)
+    g = geometry_smith(n_dot_v, n_dot_l, roughness)
+    specular = (ndf * g * f) / (4.0 * n_dot_v * n_dot_l + 0.0001)
+    k_d = (1.0 - f) * (1.0 - metalness)
+    return (k_d * albedo / PI + specular) * radiance * n_dot_l
+
+
+def diffuse_irradiance_ambient(normal, view, roughness, albedo, metalness,
+                               irradiance_sh):
+    """Diffuse IBL (main.wgsl:191-200) from the SH-9 irradiance."""
+    f0 = F0_NON_METALLIC * (1.0 - metalness) + albedo * metalness
+    ks = fresnel_schlick_roughness(_dot(normal, view).clamp(min=0.0), f0,
+                                   roughness)
+    irr = sh_eval_irradiance(irradiance_sh, normal).clamp(min=0.0)
+    return (1.0 - ks) * irr * albedo
+
+
+def shade_deferred(g, camera_pos: torch.Tensor, lights: "ShadingLights",
+                   num_point: int, num_directional: int,
+                   irradiance_sh: torch.Tensor | None,
+                   shadow_gates: torch.Tensor | None = None) -> torch.Tensor:
+    """Deferred shading over a ``resolve.GBuffer`` (main.wgsl:202-259) ->
+    HDR (H, W, 3): each point light with inverse-square falloff and each
+    directional light, gated on ``shadow > 0`` as the reference gates (not
+    scaled by the PCF fraction), plus SH-9 ambient times ao; zero off the
+    mask. ``shadow_gates`` (P + D, H, W), points first; None = all lit."""
+    pos, normal, albedo = g.position, g.normal, g.albedo
+    rough = g.rough_metal_ao[..., 0:1]
+    metal = g.rough_metal_ao[..., 1:2]
+    ao = g.rough_metal_ao[..., 2:3]
+    to_cam = _normalize(camera_pos - pos)
+    hdr = torch.zeros_like(albedo)
+
+    def gate(i):
+        if shadow_gates is None:
+            return 1.0
+        return (shadow_gates[i] > 0.0).to(F32)[..., None]
+
+    for i in range(num_point):
+        to_light = lights.point_position[i] - pos
+        dist2 = _dot(to_light, to_light).clamp(min=1e-8)
+        contrib = light_contribution(
+            to_light / sqrt(dist2), lights.point_color[i], 1.0 / dist2,
+            to_cam, normal, albedo, metal, rough)
+        hdr = hdr + contrib * gate(i)
+    for i in range(num_directional):
+        contrib = light_contribution(
+            -lights.dir_direction[i], lights.dir_color[i], 1.0, to_cam,
+            normal, albedo, metal, rough)
+        hdr = hdr + contrib * gate(num_point + i)
+    if irradiance_sh is not None:
+        hdr = hdr + diffuse_irradiance_ambient(normal, to_cam, rough, albedo,
+                                               metal, irradiance_sh) * ao
+    return torch.where(g.mask[..., None], hdr,
+                       torch.zeros((), device=hdr.device))
+
+
+# ---- the fused pass (K3) -------------------------------------------------
 
 def _dot3(ax, ay, az, bx, by, bz):
     # ax * bx + ay * by + az * bz as the reference's CPU build rounds it:

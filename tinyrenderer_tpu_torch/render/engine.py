@@ -24,11 +24,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import config
+from ..assets import hdr as hdrlib
 from ..ops import compact
 from ..ops import env as envops
-from ..ops import sampling
-from ..shared import Camera, World, config, level_io
-from ..shared import hdr as hdrlib
+from ..ops import post, sampling
+from ..scene import level_io
+from ..scene.camera import Camera
+from ..scene.world import World
 from . import frame as framelib
 from .scene_gpu import CapacityError, PackResult, ScenePacker
 
@@ -100,19 +103,19 @@ class Engine:
     # -- environment --------------------------------------------------------
 
     def _ensure_env(self) -> framelib.EnvGPU:
-        """Procedural sky -> env cube, the embedded irradiance map and its
-        SH-9 projection, and the windowed-RGBE display cube."""
+        """Procedural sky -> env cube, the embedded irradiance map (resized
+        to ``irradiance_size`` as the reference resizes it: the map is
+        smooth) and its SH-9 projection, and the windowed-RGBE display
+        cube."""
         if self._env is None:
             eq = torch.as_tensor(hdrlib.procedural_sky(), device=self.device)
             cube = envops.equirect_to_cubemap(eq, self.cfg.env_size,
                                               gamma_decode=False)
             irr = np.load(DEFAULT_IBL)["irradiance"].astype(np.float32)
-            if irr.shape[1] != self.cfg.irradiance_size:
-                raise NotImplementedError(
-                    f"irradiance_size {self.cfg.irradiance_size}: the embedded "
-                    f"map is {irr.shape[1]}^2 and resizing or baking it is not "
-                    "ported yet (ROADMAP.md queue 1 item 14)")
             irr_t = torch.as_tensor(irr, device=self.device)
+            s = self.cfg.irradiance_size
+            if irr.shape[1] != s:
+                irr_t = post.resize_linear(irr_t, (6, s, s, 3))
             self._env = framelib.EnvGPU(
                 env_cube=cube, irradiance=irr_t,
                 irradiance_sh=envops.sh_project_cubemap(irr_t),
@@ -200,10 +203,7 @@ class Engine:
         threshold of tex_block_capacity growth."""
         cfg = self.cfg
         if cfg.render_scale_pct != 100:
-            pct = cfg.render_scale_pct
-            cfg = replace(cfg, render_scale_pct=100,
-                          width=max(cfg.tile_w, (cfg.width * pct) // 100),
-                          height=max(cfg.tile_h, (cfg.height * pct) // 100))
+            cfg = framelib.scaled_config(cfg)
         dims = compact.block_dims(cfg.padded_height, cfg.padded_width)
         if dims is None:
             return 0

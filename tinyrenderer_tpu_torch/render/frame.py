@@ -1,5 +1,5 @@
-"""One frame (port of render/frame.py: the fused deferred frame and the
-forward-only frame).
+"""One frame (port of render/frame.py: the fused deferred frame, the
+unfused deferred chain, the scaled frame and the forward-only frame).
 
 The deferred frame (``_render_frame_fused``) runs, in order: geometry
 (vertex transform), triangle setup + the resolve table (slim on flat-only
@@ -14,9 +14,24 @@ reference does, the CSR stream (stream binning, K4, K5) for pools above
 4096 triangles under ``cfg.stream_raster``, and otherwise dense or scatter
 bins, K1 and K2.
 
+Every other deferred configuration (SSR, ``texture_scale > 1``,
+``fused_shading`` off, shadows off, no lights, ``fused_resolve``,
+``use_pallas`` off) takes the unfused chain: raster + resolve
+(:func:`_raster_resolve`), the GBuffer assembly, the shadow gates,
+``shading.shade_deferred``, the sky behind, the forward overlay, SSR and
+tone mapping. ``render_scale_pct != 100`` renders either frame at the
+reduced size and resizes it (HDR bilinear, pick ids and depth nearest).
+
 The forward-only frame (``cfg.forward_only``, ``render_frame_forward``)
-rasterizes and resolves the deferred triangles (K1 + K2 or K4 + K5),
-samples the material, and shades N-dot-L with an ambient floor.
+rasterizes and resolves the deferred triangles, samples the material, and
+shades N-dot-L with an ambient floor.
+
+Raster + resolve follows the reference's branches: the fused raster +
+resolve kernel K6 under ``fused_resolve``, else K1 (or K4 on the stream)
+and select + eval. ``use_pallas=False`` selects the reference's kernel-free
+*branch*: the full table, no stream, the tiled resolve. It does not select
+plain versions: a CUDA tensor still launches the kernels, whose plain
+versions equal the reference's jnp paths.
 
 Branches of the reference not ported yet raise ``NotImplementedError``
 naming their ROADMAP.md queue-1 item (:func:`check_ported`).
@@ -24,15 +39,15 @@ naming their ROADMAP.md queue-1 item (:func:`check_ported`).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
 
-from ..ops import env as envops
+from .. import config
 from ..ops import compact, post, raster, resolve, sampling, shading, shadows
+from ..ops import env as envops
 from ..ops.fp import fma
-from ..shared import config
 from .scene_gpu import LightsGPU, SceneGPU
 
 F32 = torch.float32
@@ -151,6 +166,16 @@ def use_fused_shading(cfg: config.RenderConfig) -> bool:
             and (cfg.num_point_lights + cfg.num_directional_lights) > 0)
 
 
+def scaled_config(cfg: config.RenderConfig) -> config.RenderConfig:
+    """The configuration of the frame actually rendered under
+    ``render_scale_pct``: the reduced size (at least one tile), same aspect
+    and camera."""
+    pct = cfg.render_scale_pct
+    return replace(cfg, render_scale_pct=100,
+                   width=max(cfg.tile_w, (cfg.width * pct) // 100),
+                   height=max(cfg.tile_h, (cfg.height * pct) // 100))
+
+
 def check_ported(cfg: config.RenderConfig) -> None:
     """Raise NotImplementedError for a configuration this port cannot run
     yet, naming the ROADMAP.md queue-1 item that ports it."""
@@ -160,20 +185,13 @@ def check_ported(cfg: config.RenderConfig) -> None:
 
     if cfg.native_texture_pool:
         refuse("the native-size texture pool (native_texture_pool)", "14")
-    if cfg.fused_resolve:
-        refuse("the fused raster + resolve kernel K6 (fused_resolve)", "12")
-    if not cfg.use_pallas:
-        refuse("the kernel-free fallback chain (use_pallas off)", "12")
+    if cfg.render_scale_pct != 100 and not cfg.forward_only:
+        cfg = scaled_config(cfg)
     s = cfg.sky_scale
     if s > 1 and (cfg.padded_height % s or cfg.padded_width % s):
         refuse("a non-integer sky upsample", "14")
     if cfg.forward_only:
         return
-    if cfg.render_scale_pct != 100:
-        refuse("render_scale_pct != 100 (the unfused chain)", "12")
-    if not use_fused_shading(cfg):
-        refuse("the unfused deferred chain (fused_shading off, SSR, "
-               "texture_scale > 1, shadows off or no lights)", "12")
     if cfg.sky_block_capacity > 0:
         refuse("the block-compacted exact sky (sky_block_capacity > 0)", "14")
     if s > 1 and cfg.sky_upsample != "bilinear":
@@ -196,8 +214,40 @@ def render_frame(scene: SceneGPU, pool: sampling.TexturePoolGPU,
     if cfg.forward_only:
         return render_frame_forward(scene, pool, lights, camera_raw, params,
                                     env, cfg)
-    return _render_frame_fused(scene, pool, lights, camera_raw, params, env,
-                               cfg, atlas)
+    if cfg.render_scale_pct != 100:
+        return _render_frame_scaled(scene, pool, lights, camera_raw, params,
+                                    env, cfg, atlas)
+    if use_fused_shading(cfg):
+        return _render_frame_fused(scene, pool, lights, camera_raw, params,
+                                   env, cfg, atlas)
+    return _render_frame_unfused(scene, pool, lights, camera_raw, params,
+                                 env, cfg, atlas)
+
+
+def _upsample_bilinear(img: torch.Tensor, height: int,
+                       width: int) -> torch.Tensor:
+    """(h, w, C) -> (height, width, C) bilinear: the exact phase-wise form
+    for integer factors, the interpolating resize otherwise."""
+    h, w = img.shape[:2]
+    if height % h == 0 and width % w == 0:
+        return post.upsample_bilinear_int(img, height // h, width // w)
+    return post.resize_bilinear(img, height, width)
+
+
+def _render_frame_scaled(scene, pool, lights, camera_raw, params, env, cfg,
+                         atlas) -> FrameOutput:
+    """Reduced internal resolution: the whole deferred frame at
+    :func:`scaled_config`'s size, then the HDR upsampled bilinearly and
+    tone-mapped at full size; pick ids and depth resized nearest, so ids
+    stay exact."""
+    out = render_frame(scene, pool, lights, camera_raw, params, env,
+                       scaled_config(cfg), atlas)
+    H, W = cfg.height, cfg.width
+    hdr = _upsample_bilinear(out.hdr, H, W)
+    sdr = post.tone_map(hdr, params[PARAM_TONE_TYPE], params[PARAM_EXPOSURE])
+    return replace(out, sdr=sdr, hdr=hdr,
+                   pick_id=post.resize_nearest(out.pick_id, H, W),
+                   depth=post.resize_nearest(out.depth, H, W))
 
 
 def _sky_cf(env: EnvGPU, cam: dict, cfg: config.RenderConfig
@@ -213,22 +263,34 @@ def _sky_cf(env: EnvGPU, cam: dict, cfg: config.RenderConfig
     return post.upsample_bilinear_int_cf(sky_c, s, s) if s > 1 else sky_c
 
 
+def _slim_table(cfg: config.RenderConfig) -> bool:
+    """The reference resolves the slim 28-column table only for a flat-only
+    scene on the select + eval paths (``use_pallas`` on, no K6)."""
+    return not cfg.any_textured and cfg.use_pallas and not cfg.fused_resolve
+
+
 def _raster_resolve(clip: torch.Tensor, tri_vidx: torch.Tensor,
                     tri_mask: torch.Tensor, tri_instance: torch.Tensor,
                     vattrs: resolve.VertexAttrs, scene: SceneGPU,
                     cfg: config.RenderConfig, cull: str):
-    """Two-pass raster + resolve: the CSR stream (K4 + K5) for pools above
-    4096 under ``cfg.stream_raster``, else dense or scatter bins (K1 +
-    K2). Returns (tri_id, depth, ResolvedAttrs, bins). The reference's
-    fused raster + resolve (K6) is refused upstream."""
+    """Raster + resolve -> (tri_id, depth, ResolvedAttrs, bins), by the
+    reference's branches: the fused raster + resolve kernel (K6) under
+    ``fused_resolve``; else the CSR stream (K4 + K5) for pools above 4096
+    under ``cfg.stream_raster``; else dense or scatter bins, K1 and select +
+    eval (K2). The slim table only where the reference takes it (a
+    flat-only scene on the select + eval paths); ``use_pallas`` off keeps
+    the full table, skips the stream and resolves in float32, as the
+    reference's tiled fallback does."""
     PW, PH = cfg.padded_width, cfg.padded_height
     th, tw = cfg.tile_h, cfg.tile_w
+    fused = cfg.use_pallas and cfg.fused_resolve
     setup = raster.triangle_setup(clip, tri_vidx, tri_mask, PW, PH, cull)
     table = resolve.build_gbuffer_table(
         setup, tri_vidx, vattrs, tri_instance, scene.inst_object_id,
         scene.inst_material, scene.mat_record, scene.mat_flat,
-        slim=not cfg.any_textured)
-    if cfg.stream_raster and raster.stream_pays_off(tri_vidx.shape[0]):
+        slim=_slim_table(cfg))
+    if (cfg.use_pallas and not fused and cfg.stream_raster
+            and raster.stream_pays_off(tri_vidx.shape[0])):
         bins = raster.bin_triangles_stream(setup, PW, PH, th, tw,
                                            cfg.stream_capacity,
                                            cfg.bin_big_capacity)
@@ -237,11 +299,16 @@ def _raster_resolve(clip: torch.Tensor, tri_vidx: torch.Tensor,
                                                 cfg.bin_capacity)
         r = resolve.resolve_attrs_stream(tri_id, bins, table, th, tw,
                                          cfg.bin_capacity, bf16=cfg.bf16_attrs)
-    else:
-        bins = raster.bin_triangles(setup, PW, PH, th, tw, cfg.bin_capacity,
-                                    cfg.bin_big_capacity)
-        tri_id, depth = raster.rasterize_binned(bins, th, tw)
-        r = resolve.resolve_attrs_pallas(tri_id, table, bf16=cfg.bf16_attrs)
+        return tri_id, depth, r, bins
+    bins = raster.bin_triangles(setup, PW, PH, th, tw, cfg.bin_capacity,
+                                cfg.bin_big_capacity)
+    if fused:
+        tri_id, depth, sel = raster.rasterize_resolve_binned(bins, table, th,
+                                                             tw)
+        return tri_id, depth, resolve.resolve_attrs_from_sel(tri_id, sel), bins
+    tri_id, depth = raster.rasterize_binned(bins, th, tw)
+    r = resolve.resolve_attrs_pallas(tri_id, table,
+                                     bf16=cfg.bf16_attrs and cfg.use_pallas)
     return tri_id, depth, r, bins
 
 
@@ -285,6 +352,113 @@ def render_frame_forward(scene: SceneGPU, pool: sampling.TexturePoolGPU,
                        tex_overflow=torch.stack([tex_needed, zero]),
                        big_overflow=bins.big_overflow, shadow_blocks=zero,
                        stream_overflow=_sovf(bins), sky_blocks=zero)
+
+
+def _forward_overlay(scene: SceneGPU, clip: torch.Tensor,
+                     attrs: resolve.VertexAttrs,
+                     pool: sampling.TexturePoolGPU, hdr: torch.Tensor,
+                     pick: torch.Tensor, overflow: torch.Tensor,
+                     big_overflow: torch.Tensor, cfg: config.RenderConfig):
+    """The forward overlay (light billboards, gizmos: depth Always, drawn on
+    top) when the scene has forward triangles: their own setup, dense bins
+    and K1, the tile-compacted resolve with its sprite at 1/max(texture
+    scale, 2) rate, composited into hdr and pick. Returns (hdr, pick,
+    overflow, big_overflow, () i32 overlay tiles wanted)."""
+    if not cfg.has_forward:
+        return hdr, pick, overflow, big_overflow, torch.zeros_like(overflow)
+    PW, PH = cfg.padded_width, cfg.padded_height
+    th, tw = cfg.tile_h, cfg.tile_w
+    f_setup = raster.triangle_setup(clip, scene.fwd_tri_vidx,
+                                    scene.fwd_tri_mask, PW, PH, "none")
+    f_bins = raster.bin_triangles(f_setup, PW, PH, th, tw, cfg.bin_capacity,
+                                  cfg.bin_big_capacity)
+    f_id, _ = raster.rasterize_binned(f_bins, th, tw)
+    f_table = resolve.build_gbuffer_table(
+        f_setup, scene.fwd_tri_vidx, attrs, scene.fwd_tri_instance,
+        scene.inst_object_id, scene.inst_material, scene.mat_record,
+        scene.mat_flat)
+    hdr, pick, needed = resolve.forward_overlay_compose(
+        hdr, pick, f_id, f_bins, f_table, pool, th, tw,
+        cfg.fwd_tile_capacity, texture_filter=cfg.texture_filter,
+        fs=max(cfg.texture_scale, 2))
+    return (hdr, pick, torch.maximum(overflow, f_bins.overflow),
+            torch.maximum(big_overflow, f_bins.big_overflow), needed)
+
+
+def _render_frame_unfused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
+                          lights: LightsGPU, camera_raw: torch.Tensor,
+                          params: torch.Tensor, env: Optional[EnvGPU],
+                          cfg: config.RenderConfig,
+                          atlas: Optional[torch.Tensor]) -> FrameOutput:
+    """The unfused deferred chain (the reference's ``render_frame`` body):
+    raster + resolve, GBuffer, shadow gates, ``shade_deferred``, the sky
+    behind, the forward overlay, SSR, tone map."""
+    cam = _unpack_camera(camera_raw)
+    W, H = cfg.width, cfg.height
+    P, D = cfg.num_point_lights, cfg.num_directional_lights
+    zero = torch.zeros((), dtype=I32, device=camera_raw.device)
+    _, clip, attrs = geometry_stage(
+        scene, cam["view_proj"],
+        need_tbn=not _slim_table(cfg) or cfg.has_forward)
+    tri_id, depth, r_main, m_bins = _raster_resolve(
+        clip, scene.tri_vidx, scene.tri_deferred, scene.tri_instance, attrs,
+        scene, cfg, "back")
+    g, tex_needed = resolve.resolve_gbuffer_from_attrs(
+        r_main, tri_id, depth, pool, texture_filter=cfg.texture_filter,
+        texture_scale=cfg.texture_scale,
+        tex_block_capacity=cfg.tex_block_capacity,
+        sample_textures=cfg.any_textured)
+    overflow, big_overflow = m_bins.overflow, m_bins.big_overflow
+
+    # ---- shadow gates (the atlas is cached across frames by the engine) --
+    shadow_overflow = shadow_blocks = zero
+    gates = None
+    if cfg.enable_shadows and P + D > 0:
+        if atlas is None:
+            atlas, shadow_overflow, s_big = render_shadow_atlas(scene, lights,
+                                                                cfg)
+            big_overflow = torch.maximum(big_overflow, s_big)
+        vis_all, vis_slot = shadows.gate_fns(
+            lights.point_position[:P],
+            lights.dir_viewproj[:D] if D > 0 else None, atlas,
+            bias=params[PARAM_SHADOW_BIAS])
+        gates, shadow_blocks = shadows.gate_refined_visibility(
+            vis_all, vis_slot, g.position, cfg.shadow_lookup_scale,
+            cfg.shadow_block_capacity,
+            block_dims=(cfg.gate_block_h, cfg.gate_block_w))
+
+    # ---- deferred shading, the sky behind ----
+    slights = shading.ShadingLights(
+        point_position=lights.point_position, point_color=lights.point_color,
+        dir_direction=lights.dir_direction, dir_color=lights.dir_color,
+        dir_viewproj=lights.dir_viewproj)
+    irradiance = (env.irradiance_sh
+                  if (env is not None and cfg.enable_ibl) else None)
+    hdr = shading.shade_deferred(g, cam["position"], slights, P, D,
+                                 irradiance, gates)
+    if env is not None:
+        hdr = torch.where(g.mask[..., None], hdr,
+                          _sky_cf(env, cam, cfg).permute(1, 2, 0))
+
+    hdr, pick, overflow, big_overflow, fwd_needed = _forward_overlay(
+        scene, clip, attrs, pool, hdr, g.object_id, overflow, big_overflow,
+        cfg)
+
+    # ---- SSR (the reference ships strength 0: a pass-through) ----
+    if cfg.enable_ssr:
+        hdr = post.screen_space_reflections(
+            hdr, depth, g.position, g.normal, cam["view_proj"],
+            cam["position"], params[PARAM_SSR_THICKNESS],
+            params[PARAM_SSR_STRENGTH], mask=g.mask,
+            roughness=g.rough_metal_ao[..., 0])
+
+    sdr = post.tone_map(hdr, params[PARAM_TONE_TYPE], params[PARAM_EXPOSURE])
+    return FrameOutput(sdr=sdr[:H, :W], pick_id=pick[:H, :W],
+                       depth=depth[:H, :W], hdr=hdr[:H, :W],
+                       bin_overflow=overflow, shadow_overflow=shadow_overflow,
+                       tex_overflow=torch.stack([tex_needed, fwd_needed]),
+                       big_overflow=big_overflow, shadow_blocks=shadow_blocks,
+                       stream_overflow=_sovf(m_bins), sky_blocks=zero)
 
 
 def _render_frame_fused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
@@ -373,24 +547,8 @@ def _render_frame_fused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
         tri_id, outf_c, outh_c, rec_c, gates_c, sky_c, cam["position"],
         slights, P, D, irradiance).permute(1, 2, 0)
 
-    # ---- forward overlay: K1 over dense bins, compacted tile resolve ----
-    fwd_needed = zero
-    if cfg.has_forward:
-        f_setup = raster.triangle_setup(clip, scene.fwd_tri_vidx,
-                                        scene.fwd_tri_mask, PW, PH, "none")
-        f_bins = raster.bin_triangles(f_setup, PW, PH, th, tw,
-                                      cfg.bin_capacity, cfg.bin_big_capacity)
-        f_id, _ = raster.rasterize_binned(f_bins, th, tw)
-        f_table = resolve.build_gbuffer_table(
-            f_setup, scene.fwd_tri_vidx, attrs, scene.fwd_tri_instance,
-            scene.inst_object_id, scene.inst_material, scene.mat_record,
-            scene.mat_flat)
-        overflow = torch.maximum(overflow, f_bins.overflow)
-        big_overflow = torch.maximum(big_overflow, f_bins.big_overflow)
-        hdr, pick, fwd_needed = resolve.forward_overlay_compose(
-            hdr, pick, f_id, f_bins, f_table, pool, th, tw,
-            cfg.fwd_tile_capacity, texture_filter=cfg.texture_filter,
-            fs=max(cfg.texture_scale, 2))
+    hdr, pick, overflow, big_overflow, fwd_needed = _forward_overlay(
+        scene, clip, attrs, pool, hdr, pick, overflow, big_overflow, cfg)
 
     sdr = post.tone_map(hdr, params[PARAM_TONE_TYPE], params[PARAM_EXPOSURE])
     return FrameOutput(sdr=sdr[:H, :W], pick_id=pick[:H, :W],

@@ -7,8 +7,8 @@ host numpy (:class:`ScenePacker`); :func:`scene_from_numpy` and
 :func:`lights_from_numpy` upload the named arrays — the port's own pack,
 or the JAX pack's fields fetched with ``np.asarray``.
 
-Material textures are staged on the host (``assets.textures.TexturePool``,
-shared with the reference) as composite 9-channel records; ``pool_for``
+Material textures are staged on the host (``assets.textures.TexturePool``)
+as composite 9-channel records; ``pool_for``
 packs them into the windowed u8 device pool the frame samples, once per
 pool change and device.
 """
@@ -25,12 +25,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import config
+from ..assets import mesh as meshlib
+from ..assets import textures as texlib
 from ..ops import sampling
-from ..shared import World, config
-from ..shared import components as comp
-from ..shared import lights as lightslib
-from ..shared import mesh as meshlib
-from ..shared import textures as texlib
+from ..scene import components as comp
+from ..scene import lights as lightslib
+from ..scene.world import World
 
 log = logging.getLogger(__name__)
 
@@ -142,7 +143,7 @@ class ScenePacker:
         if desc.kind == "PrimitiveInCode":
             mesh = meshlib.get_primitive(desc.value)
         else:
-            from tinyrenderer_tpu.assets import gltf as gltflib  # JAX-free
+            from ..assets import gltf as gltflib
             base, part = gltflib.split_part_fragment(desc.value)
             path = self.resolve_path(base)
             if path is None:
