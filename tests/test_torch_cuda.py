@@ -75,6 +75,165 @@ def test_raster_resolve_kernel_matches_plain(cuda, th, tw, K, D):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _same(a, b):
+    """Bit-equal, -0.0 and +0.0 told apart."""
+    return a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32) if a.dtype == torch.float32 else a,
+        b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,tw,K", [
+    (16, 128, 300),      # K no multiple of the kernel's 256-row step
+    (4, 16, 64),         # a tile smaller than the block's 8 x 32 rectangle
+    (24, 80, 128),       # tile_w no multiple of 32, tile_h none of 8
+    (128, 128, 600)])    # the large-tile plane order, K past two steps
+def test_raster_kernel_edges_match_plain(cuda, th, tw, K):
+    """Counts of 0 and of K beside ordinary ones, and dead rows (id 0)
+    between live ones."""
+    setup, _ = _bins(cuda, th, tw)
+    T = setup.rows.shape[0]
+    H, W = 2 * th, 2 * tw
+    rep = raster.TriangleSetup(**{f: getattr(setup, f).repeat(
+        *([3] + [1] * (getattr(setup, f).ndim - 1)))
+        for f in ("rows", "valid", "bbox", "screen", "inv_w", "z_ndc")})
+    rep.rows[:, 12] = torch.arange(1, 3 * T + 1, device=cuda) * rep.valid
+    bins = raster.bin_triangles_dense(rep, W, H, th, tw, K)
+    bins.rows[:, :, 1::3] = 0.0                  # dead rows inside the count
+    bins.counts[0, 0] = 0
+    assert int(bins.counts[0, 1]) == K           # a full bin
+    tid, z = raster.rasterize_binned(bins, th, tw)
+    rid, rz = raster.rasterize_binned_ref(bins, th, tw)
+    torch.cuda.synchronize()
+    assert (rid[:th, :tw] == -1).all() and (rid >= 0).float().mean() > 0.2
+    assert torch.equal(tid, rid) and _same(z, rz)
+    table = torch.randn(3 * T, 28, device=cuda)
+    a = raster.rasterize_resolve_binned(bins, table, th, tw)
+    b = raster.rasterize_resolve_binned_ref(bins, table, th, tw)
+    assert all(_same(x, y) for x, y in zip(a, b))
+
+
+def _tie_bins(dev):
+    """One 8 x 64 tile: two rows of equal depth on the same pixels, a dead
+    row between them, a row of depth exactly 0, and a row past the count."""
+    def row(idf, z, x_max):
+        r = torch.zeros(16)
+        r[2] = r[5] = 1.0                 # edges 0 and 1: 1 everywhere
+        r[6], r[8] = -1.0, x_max          # edge 2: x_max - px >= 0
+        r[11], r[12] = z, idf
+        return r
+
+    rows = torch.stack([row(3.0, 0.5, 40.0), torch.zeros(16),
+                        row(9.0, 0.5, 20.0), row(5.0, 0.0, 64.0),
+                        row(11.0, 0.9, 64.0)]).to(dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return raster.Bins(ids=torch.zeros(1, 1, 5, dtype=torch.int32, device=dev),
+                       rows=rows[None, None].contiguous(),
+                       counts=torch.tensor([[4]], dtype=torch.int32, device=dev),
+                       overflow=zero, big_overflow=zero)
+
+
+@pytest.mark.cuda
+def test_raster_kernels_keep_ties_and_zero_depth(cuda):
+    """Equal depths: the larger id wins; depth exactly 0 still wins on its
+    id. K1, K6 and K4 (the same rows as one stream segment)."""
+    bins = _tie_bins(cuda)
+    want = torch.tensor([8] * 20 + [2] * 20 + [4] * 24, device=cuda)
+    rid, rz = raster.rasterize_binned_ref(bins, 8, 64)
+    assert torch.equal(rid, want.expand(8, 64).int())
+    tid, z = raster.rasterize_binned(bins, 8, 64)
+    assert torch.equal(tid, rid) and _same(z, rz)
+    table = torch.randn(6, 5, device=cuda)       # ids 8 >= T: zeros
+    a = raster.rasterize_resolve_binned(bins, table, 8, 64)
+    assert torch.equal(a[0], rid) and _same(a[1], rz)
+    assert (a[2][:, :20] == 0).all()
+    assert torch.equal(a[2][:, 20:], table[rid[:, 20:].long()])
+    Ls = 2048
+    srows = torch.zeros(Ls, 16, device=cuda)
+    srows[:4] = bins.rows[0, 0, :4]
+    sb = raster.StreamBins(
+        ids=torch.full((Ls,), -1, dtype=torch.int32, device=cuda), rows=srows,
+        starts=torch.tensor([0, 4], dtype=torch.int32, device=cuda),
+        counts=bins.counts, overflow=bins.overflow,
+        stream_overflow=bins.overflow, big_overflow=bins.overflow)
+    sid, sz = raster.rasterize_stream(sb, 1, 1, 8, 64, 1024)
+    assert torch.equal(sid, rid) and _same(sz, rz)
+
+
+def _crowded(dev, T=32000):
+    """T triangles of a few pixels, all inside the last of 2 x 2 tiles of
+    128 x 128 pixels."""
+    rng = np.random.default_rng(5)
+    c = rng.uniform((0.05, -0.95), (0.95, -0.05), (T, 1, 2))
+    xy = c + rng.uniform(-0.012, 0.012, (T, 3, 2))
+    w = rng.uniform(0.5, 2.0, (T, 3, 1))
+    z = rng.uniform(0.05, 0.9, (T, 3, 1))
+    clip = np.concatenate([xy * w, z * w, w], 2).reshape(-1, 4).astype(np.float32)
+    return raster.triangle_setup(
+        torch.from_numpy(clip).to(dev),
+        torch.arange(3 * T, dtype=torch.int32, device=dev).reshape(T, 3),
+        torch.ones(T, dtype=torch.bool, device=dev), 256, 256, "none")
+
+
+@pytest.mark.cuda
+def test_raster_kernels_one_crowded_tile(cuda):
+    """One tile of more than 30000 rows beside empty ones (scatter bins,
+    K = 32768), through K1 and K6; the same triangles as a stream
+    through K4."""
+    setup = _crowded(cuda)
+    bins = raster.bin_triangles_scatter(setup, 256, 256, 128, 128, 32768, 64)
+    counts = bins.counts.reshape(-1).tolist()
+    assert counts[3] > 30000 and counts[0] == 0, counts
+    rid, rz = raster.rasterize_binned_ref(bins, 128, 128, chunk=64)
+    tid, z = raster.rasterize_binned(bins, 128, 128)
+    assert (rid[128:, 128:] >= 0).float().mean() > 0.5
+    assert torch.equal(tid, rid) and _same(z, rz)
+    table = torch.randn(setup.rows.shape[0], 53, device=cuda)
+    a = raster.rasterize_resolve_binned(bins, table, 128, 128)
+    b = raster.rasterize_resolve_binned_ref(bins, table, 128, 128, chunk=64)
+    assert all(_same(x, y) for x, y in zip(a, b))
+    sb = raster.bin_triangles_stream(setup, 256, 256, 128, 128, 65536, 64)
+    sid, sz = raster.rasterize_stream(sb, 2, 2, 128, 128, 32768)
+    pid, pz = raster.rasterize_stream_ref(sb, 2, 2, 128, 128, 32768)
+    assert (pid >= 0).float().mean() > 0.1
+    assert torch.equal(sid, pid) and _same(sz, pz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,tw", [(64, 128), (24, 80)])
+@pytest.mark.parametrize("D", [53, 28, 7, 600])
+def test_raster_resolve_kernel_row_store(cuda, th, tw, D):
+    """K6's store at the published row widths, an odd one and one too wide
+    for the staged store, on tiles that take the vector store and on a
+    ragged one that takes the scalar store; a table shorter than the ids
+    (ids >= T give zeros)."""
+    setup, _ = _bins(cuda, th, tw)
+    bins = raster.bin_triangles_dense(setup, 2 * tw, 2 * th, th, tw, 128)
+    T = setup.rows.shape[0]
+    table = torch.randn(T, D, device=cuda)
+    a = raster.rasterize_resolve_binned(bins, table, th, tw)
+    b = raster.rasterize_resolve_binned_ref(bins, table, th, tw)
+    assert all(_same(x, y) for x, y in zip(a, b))
+    short = table[: T // 2].contiguous()
+    c = raster.rasterize_resolve_binned(bins, short, th, tw)
+    assert torch.equal(c[0], b[0]) and _same(c[1], b[1])
+    beyond = b[0] >= T // 2
+    assert beyond.any() and (c[2][beyond] == 0).all()
+    assert _same(c[2][~beyond], b[2][~beyond])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,tw", [(12, 80), (64, 128)])
+def test_stream_raster_kernel_tile_shapes(cuda, th, tw):
+    """K4 on a ragged tile and on a tile of several block rows."""
+    _, sb = _stream(cuda, th, tw, 16384)
+    ty, tx = sb.counts.shape
+    tid, z = raster.rasterize_stream(sb, ty, tx, th, tw, 4096)
+    rid, rz = raster.rasterize_stream_ref(sb, ty, tx, th, tw, 4096)
+    assert (rid >= 0).float().mean() > 0.2
+    assert torch.equal(tid, rid) and _same(z, rz)
+
+
 def _stream(dev, th, tw, Ls, cluster=False, seed=1):
     """Stream bins of 6000 small triangles (a few pixels each, as a
     high-poly mesh gives) plus a few screen-sized ones (the big list).

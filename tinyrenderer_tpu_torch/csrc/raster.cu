@@ -11,33 +11,73 @@
 // the same tail. K6 replaces tinyrenderer_tpu/ops/raster.py::
 // _raster_resolve_kernel (launcher rasterize_resolve_binned, the
 // fused_resolve configuration): K1's race over dense bins, then the
-// winner's row of the (T, D) resolve table. All three evaluate the three
-// edge planes and the depth plane of every 16-float setup row at the pixel
-// centres, keep a pixel where all edges are >= 0 and the id is > 0, and
-// run a reverse-Z max-depth race with ties broken by the larger id.
+// winner's row of the (T, D) resolve table. All three keep a pixel for a
+// 16-float setup row where its three edge planes are >= 0 at the pixel
+// centre and its id is > 0, and run a reverse-Z max-depth race over the
+// kept rows with ties broken by the larger id. The result is the maximum
+// of (depth, id), so it does not depend on the order of the rows.
 //
-// What bounds K1 and K4 on the H100: arithmetic. Each pixel evaluates 4 planes
-// per row of its tile's bin (K = 256 rows x 2 M pixels at 1080p is ~2 G
-// plane evaluations), while the rows are a few MB. Design: one thread per
-// pixel keeps best_z / best_id in registers; a block covers kThreads
-// pixels of one tile (a 128 x 128 shadow tile has 16384 pixels, more than
-// a block may hold) and stages the tile's rows through shared memory
-// kChunk rows at a time (race_rows, shared by all three), so every row
-// is read from device memory once per block and broadcast from shared
-// memory. A tile of P pixels spans P / kThreads blocks that each stage the
-// same rows: at the high-poly main view's 8 x 128 tiles every segment is
-// read from L2 four times, which is what bounds K4 beside the plane
-// arithmetic. Results go straight into the untiled (H', W') image.
+// The race (race_rows, shared by all three) tests no pixel a row cannot
+// cover. A block is a 32 x 8 rectangle of its tile's pixels, a warp one
+// 32-pixel row of it, a thread one pixel with best_z / best_id in
+// registers; a tile of any shape is ceil(w / 32) x ceil(h / 8) blocks, the
+// ragged ones clipped and masked. Level 1: each thread reads one row of
+// the bin straight from device memory (three 16-byte loads and its id) and
+// tests it against the block's rectangle; the survivors are compacted
+// (ballot + prefix over the warps' counts, one sync a 256 rows) into a
+// ring of 48-byte slots in shared memory. Level 2, when the ring fills or
+// the bin ends: each lane of a warp takes one survivor and tests it
+// against the warp's pixel row; for each one that passed, the warp reads
+// its slot once (broadcast 16-byte loads) and every lane evaluates the
+// four planes at its own pixel with tr::plane. Two departures, chosen by
+// the bin's length, which is uniform over the block:
+//   - a bin of at most kDirectRows rows (the main and shadow views of
+//     ordinary scenes hold a few rows a tile) skips level 1, the ring and
+//     every sync: each warp tests the rows against its own pixel row
+//     straight from device memory (race_direct);
+//   - a bin of more than kFineRows rows is taken for small triangles:
+//     level 2 tests a survivor against four 8-pixel segments of the row
+//     and each quarter of the warp walks the survivors of its own segment.
 //
-// K6 is bound by bytes instead: at 1088 x 1920 it writes a D = 53 float
-// row a pixel (443 MB), against a few MB of bins. The TPU kernel carries
-// the winner's row through the race with a one-hot matrix product over the
-// tile's pre-gathered table rows; here the race is K1's (race_rows) and
-// only its result picks the row: table[best_id - 1], read through the
-// read-only cache (the table is small and stays in L2). The block writes
-// its pixels' rows together, thread k of the block writing float k of the
-// block's rows, so that the stores of a warp are contiguous (a tile row of
-// pixels is contiguous in the (H', W', D) output). Background pixels get
+// Why the rejection is exact (tr::edges_reject, common.cuh): tr::plane is
+// a composition of correctly rounded operations, each monotone, so for a
+// fixed py it rises or falls with px as the sign of a says, and likewise
+// in py with b. Its maximum over the pixel centres of a rectangle is thus
+// its own value at the corner those signs pick, and a row is dropped only
+// if some edge is < 0 even there (a NaN drops nothing). Nothing is stepped
+// incrementally: every pixel's value is the plain tr::plane formula.
+//
+// Balance: K1 splits a bin of more than kSplitRows rows over several
+// blocks (raster_kernel). The high-poly shadow view needs it: all of its
+// 54055 rows fall into one 128 x 128 tile of 64, sub-texel triangles in a
+// few clusters, so 64 blocks did all the work (1.31 ms on an H100 80GB
+// HBM3 at 700 W; 0.40 ms split by 4096 rows, 0.25 ms by 2048, 0.24 ms by
+// 1024; 4.73 ms before the cull). What bounds it now is level 2 in the
+// rectangles that hold a cluster: 73% of a block's survivors also pass its
+// pixel rows, 16% an 8-pixel segment, and 1940 (row, pixel) pairs are
+// covered at all. Staging: requesting a thread's next row before testing
+// the current one changed no time (0.259 against 0.260 ms) and cost 20
+// registers, so there is none; the block count a multiprocessor holds
+// matters more (kMinBlocks). What bounds the short bins is the chain of
+// dependent loads a block starts with (count, rows), over 8160 blocks at
+// 1088 x 1920: the direct path brought the main view from 0.0268 to
+// 0.0210 ms, beside 0.0207 ms for the exhaustive race it replaces (which
+// took 6.22 ms on the high-poly shadow view, and 0.1694 ms as K4 where
+// this one takes 0.0918 ms, in the same run); sending a bin of at most 8
+// rows to the pixels untested was slower (0.0237 against 0.0211 ms).
+// tools/tune_raster.py times such variants side by side.
+//
+// K6 is bound by bytes: at 1088 x 1920 it writes a D = 53 float row a
+// pixel (443 MB), against a few MB of bins. The race is K1's and only its
+// result picks the row, table[best_id - 1], read through the read-only
+// cache (the table is small and stays in L2). The pixels of one image row
+// of a block are one contiguous, 16-byte aligned span of 32 * D floats
+// whatever D is: each warp composes its span in shared memory (the ring's,
+// free once the race is over; one pixel at a time, the lanes across the D
+// floats, so neither the table reads nor the shared writes need a
+// division) and writes it out with 16-byte streaming stores. A tile width
+// that is no multiple of 32, or a D too large for shared memory, takes the
+// scalar store loop of the same kernel. Background pixels and ids >= T get
 // zeros, as the reference's empty one-hot sum.
 //
 // Semantics follow the Pallas kernels, not the jnp reference: the race
@@ -52,34 +92,243 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 64;
-constexpr int kCols = 16;
+// These four can be set from the command line of nvcc, as
+// tools/tune_raster.py does to time variants side by side.
+#ifndef TR_SPLIT_ROWS
+#define TR_SPLIT_ROWS 2048
+#endif
+#ifndef TR_FINE_ROWS
+#define TR_FINE_ROWS 512
+#endif
+#ifndef TR_DIRECT_ROWS
+#define TR_DIRECT_ROWS 64
+#endif
+#ifndef TR_MIN_BLOCKS
+#define TR_MIN_BLOCKS 6
+#endif
 
-// Depth race of one pixel (px, py) over rows[0, n), staged through srow by
-// the whole block; every thread of the block must call it (the syncs), and
-// only threads with active set evaluate.
-__device__ __forceinline__ void race_rows(const float* __restrict__ rows,
-                                          int n, bool active, float px,
-                                          float py, bool mxu, float* srow,
-                                          float& best_z, float& best_id) {
-  for (int base = 0; base < n; base += kChunk) {
-    const int m = min(kChunk, n - base);
+constexpr int kThreads = 256;
+constexpr int kRectW = 32;    // block rectangle: a warp is one row of it
+constexpr int kRectH = kThreads / kRectW;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCols = 16;
+// survivor ring: floats 0..11 of a row in a 48-byte slot (the 16-byte reads
+// of eight consecutive slots fall into distinct banks), its id beside it
+constexpr int kRing = 512;    // slots, a power of two, >= 2 * kThreads
+constexpr int kRingBytes = kRing * (3 * 16 + 4);
+constexpr unsigned kFull = 0xffffffffu;
+// K1 splits a bin of more rows than this over several blocks
+constexpr int kSplitRows = TR_SPLIT_ROWS;
+// a bin of more rows than this is taken for small triangles: level 2 then
+// tests a survivor against four 8-pixel segments of the warp's row
+constexpr int kFineRows = TR_FINE_ROWS;
+// a bin of at most this many rows skips level 1 and the ring: every warp
+// tests the rows against its own pixel row straight from device memory
+constexpr int kDirectRows = TR_DIRECT_ROWS;
+// blocks of K1 and K4 a multiprocessor should hold (caps their registers)
+constexpr int kMinBlocks = TR_MIN_BLOCKS;
+
+struct Ring {
+  float4* planes;   // kRing * 3
+  float* ids;       // kRing
+  __device__ explicit Ring(void* base)
+      : planes(reinterpret_cast<float4*>(base)),
+        ids(reinterpret_cast<float*>(planes + kRing * 3)) {}
+  __device__ const float4* slot(int j) const {
+    return planes + (j & (kRing - 1)) * 3;
+  }
+};
+
+// The block's rectangle of tile t and this thread's pixel in it.
+struct Rect {
+  int ox, oy;        // image coordinates of the rectangle's first pixel
+  int w, h;          // its extent, clipped to the tile
+  int lane, warp;
+  bool row_active;   // this warp's pixel row lies in the tile
+  bool active;       // and this thread's pixel too
+  float px, py;      // this thread's pixel centre
+  float xlo, xhi, ylo, yhi;   // corner centres of the rectangle
+  __device__ Rect(int t, int tiles_x, int tile_h, int tile_w) {
+    const int nbx = (tile_w + kRectW - 1) / kRectW;
+    const int by = blockIdx.y / nbx, bx = blockIdx.y - by * nbx;
+    const int ty = t / tiles_x, tx = t - ty * tiles_x;
+    w = min(kRectW, tile_w - bx * kRectW);
+    h = min(kRectH, tile_h - by * kRectH);
+    ox = tx * tile_w + bx * kRectW;
+    oy = ty * tile_h + by * kRectH;
+    lane = threadIdx.x & 31;
+    warp = threadIdx.x >> 5;
+    row_active = warp < h;
+    active = row_active && lane < w;
+    px = (float)(ox + lane) + 0.5f;
+    py = (float)(oy + warp) + 0.5f;
+    xlo = (float)ox + 0.5f;
+    xhi = (float)(ox + w - 1) + 0.5f;
+    ylo = (float)oy + 0.5f;
+    yhi = (float)(oy + h - 1) + 0.5f;
+  }
+  __device__ void store(int* tri_id, float* depth, int width, float best_z,
+                        float best_id) const {
+    if (!active) return;
+    const size_t o = (size_t)(oy + warp) * width + (ox + lane);
+    tri_id[o] = (int)best_id - 1;
+    depth[o] = best_z;
+  }
+};
+
+// One survivor at this lane's pixel.
+__device__ __forceinline__ void race_pixel(const Ring& ring, int j,
+                                           const Rect& rc, bool mxu,
+                                           float& best_z, float& best_id) {
+  const float4* p = ring.slot(j);
+  const float4 r0 = p[0], r1 = p[1], r2 = p[2];
+  const float idf = ring.ids[j & (kRing - 1)];
+  const float l0 = tr::plane(r0.x, r0.y, r0.z, rc.px, rc.py, mxu);
+  const float l1 = tr::plane(r0.w, r1.x, r1.y, rc.px, rc.py, mxu);
+  const float l2 = tr::plane(r1.z, r1.w, r2.x, rc.px, rc.py, mxu);
+  const float z = tr::plane(r2.y, r2.z, r2.w, rc.px, rc.py, mxu);
+  const bool covered = l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && idf > 0.0f;
+  if (covered && (z > best_z || (z == best_z && idf > best_id))) {
+    best_z = z;
+    best_id = idf;
+  }
+}
+
+// Level 2: the survivors [done, total) of the ring against this warp's
+// pixel row, 32 at a time, a lane a survivor; then each survivor that
+// passed against the lanes' pixels. kFine: the row is tested as four
+// segments of 8 pixels, and each quarter of the warp walks the survivors
+// of its own segment; it pays where most survivors miss most segments.
+template <bool kFine>
+__device__ __forceinline__ void drain(const Ring& ring, int done, int total,
+                                      const Rect& rc, bool mxu,
+                                      float& best_z, float& best_id) {
+  for (int s = done; s < total; s += 32) {
+    const int j = s + rc.lane;
+    if (kFine) {
+      unsigned seg = 0;
+      if (j < total) {
+        const float4* p = ring.slot(j);
+        const float4 r0 = p[0], r1 = p[1], r2 = p[2];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int x0 = 8 * g, x1 = min(8 * g + 7, rc.w - 1);
+          if (x0 <= x1 &&
+              !tr::edges_reject(r0, r1, r2, rc.xlo + (float)x0,
+                                rc.xlo + (float)x1, rc.py, rc.py, mxu))
+            seg |= 1u << g;
+        }
+      }
+      const unsigned m0 = __ballot_sync(kFull, seg & 1u);
+      const unsigned m1 = __ballot_sync(kFull, seg & 2u);
+      const unsigned m2 = __ballot_sync(kFull, seg & 4u);
+      const unsigned m3 = __ballot_sync(kFull, seg & 8u);
+      const int g = rc.lane >> 3;
+      unsigned m = g == 0 ? m0 : g == 1 ? m1 : g == 2 ? m2 : m3;
+      while (__any_sync(kFull, m != 0)) {
+        if (m) {
+          const int b = __ffs(m) - 1;
+          m &= m - 1;
+          race_pixel(ring, s + b, rc, mxu, best_z, best_id);
+        }
+      }
+    } else {
+      bool hit = false;
+      if (j < total) {
+        const float4* p = ring.slot(j);
+        hit = !tr::edges_reject(p[0], p[1], p[2], rc.xlo, rc.xhi, rc.py,
+                                rc.py, mxu);
+      }
+      unsigned m = __ballot_sync(kFull, hit);
+      while (m) {
+        const int b = __ffs(m) - 1;
+        m &= m - 1;
+        race_pixel(ring, s + b, rc, mxu, best_z, best_id);
+      }
+    }
+  }
+}
+
+// Depth race of the block's pixels over rows[0, n) (64-byte aligned).
+// Every thread of the block must call it (the syncs). wcount holds
+// 2 * kWarps ints.
+template <bool kFine>
+__device__ __forceinline__ void race_rows_as(const float* __restrict__ rows,
+                                             int n, const Rect& rc, bool mxu,
+                                             const Ring& ring, int* wcount,
+                                             float& best_z, float& best_id) {
+  const float4* rows4 = reinterpret_cast<const float4*>(rows);
+  int total = 0, done = 0;    // survivors found and raced, block-uniform
+  for (int base = 0, it = 0; base < n; base += kThreads, ++it) {
+    const int i = base + threadIdx.x;
+    float4 r0, r1, r2;
+    float idf = 0.0f;
+    r0 = r1 = r2 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (i < n) {
+      const float4* p = rows4 + (size_t)i * 4;
+      r0 = __ldg(p), r1 = __ldg(p + 1), r2 = __ldg(p + 2);
+      idf = __ldg(rows + (size_t)i * kCols + 12);
+    }
+    // level 1: this thread's row against the block's rectangle
+    const bool keep = i < n && idf > 0.0f &&
+                      !tr::edges_reject(r0, r1, r2, rc.xlo, rc.xhi, rc.ylo,
+                                        rc.yhi, mxu);
+    const unsigned m = __ballot_sync(kFull, keep);
+    int* cnt = wcount + (it & 1) * kWarps;
+    if (rc.lane == 0) cnt[rc.warp] = __popc(m);
     __syncthreads();
-    for (int i = threadIdx.x; i < m * kCols; i += kThreads)
-      srow[i] = rows[(size_t)base * kCols + i];
-    __syncthreads();
-    if (!active) continue;
-    for (int r = 0; r < m; ++r) {
-      const float* s = srow + r * kCols;
-      const float idf = s[12];
-      const float l0 = tr::plane(s[0], s[1], s[2], px, py, mxu);
-      const float l1 = tr::plane(s[3], s[4], s[5], px, py, mxu);
-      const float l2 = tr::plane(s[6], s[7], s[8], px, py, mxu);
-      const float z = tr::plane(s[9], s[10], s[11], px, py, mxu);
-      const bool covered = l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f &&
-                           idf > 0.0f;
-      if (covered && (z > best_z || (z == best_z && idf > best_id))) {
+    int pos = total;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = cnt[w];
+      if (w < rc.warp) pos += c;
+      total += c;
+    }
+    if (keep) {
+      const int slot = (pos + __popc(m & ((1u << rc.lane) - 1))) & (kRing - 1);
+      float4* d = ring.planes + slot * 3;
+      d[0] = r0, d[1] = r1, d[2] = r2;
+      ring.ids[slot] = idf;
+    }
+    if (total - done > kRing - kThreads || base + kThreads >= n) {
+      __syncthreads();
+      if (rc.row_active)
+        drain<kFine>(ring, done, total, rc, mxu, best_z, best_id);
+      done = total;
+      // the next writes to the ring follow the next iteration's sync
+    }
+  }
+}
+
+// A short bin: no block-level cull, no shared memory, no sync. A lane a
+// row against the warp's pixel row, then each row that passed, read again
+// through L1 by all lanes, against the lanes' pixels.
+__device__ __forceinline__ void race_direct(const float* __restrict__ rows,
+                                            int n, const Rect& rc, bool mxu,
+                                            float& best_z, float& best_id) {
+  if (!rc.row_active) return;
+  const float4* rows4 = reinterpret_cast<const float4*>(rows);
+  for (int s = 0; s < n; s += 32) {
+    const int j = s + rc.lane;
+    bool hit = false;
+    if (j < n && __ldg(rows + (size_t)j * kCols + 12) > 0.0f) {
+      const float4* p = rows4 + (size_t)j * 4;
+      hit = !tr::edges_reject(__ldg(p), __ldg(p + 1), __ldg(p + 2), rc.xlo,
+                              rc.xhi, rc.py, rc.py, mxu);
+    }
+    unsigned m = __ballot_sync(kFull, hit);
+    while (m) {
+      const int b = s + __ffs(m) - 1;
+      m &= m - 1;
+      const float4* p = rows4 + (size_t)b * 4;
+      const float4 r0 = __ldg(p), r1 = __ldg(p + 1), r2 = __ldg(p + 2);
+      const float idf = __ldg(rows + (size_t)b * kCols + 12);
+      const float l0 = tr::plane(r0.x, r0.y, r0.z, rc.px, rc.py, mxu);
+      const float l1 = tr::plane(r0.w, r1.x, r1.y, rc.px, rc.py, mxu);
+      const float l2 = tr::plane(r1.z, r1.w, r2.x, rc.px, rc.py, mxu);
+      const float z = tr::plane(r2.y, r2.z, r2.w, rc.px, rc.py, mxu);
+      if (l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f &&
+          (z > best_z || (z == best_z && idf > best_id))) {
         best_z = z;
         best_id = idf;
       }
@@ -87,106 +336,176 @@ __device__ __forceinline__ void race_rows(const float* __restrict__ rows,
   }
 }
 
-// Pixel of this thread in tile t, and the race's result written out.
-struct Pixel {
-  int ty, tx, lx, ly;
-  bool active;
-  float px, py;
-  __device__ Pixel(int t, int tiles_x, int tile_h, int tile_w) {
-    const int p = blockIdx.y * kThreads + threadIdx.x;
-    ty = t / tiles_x;
-    tx = t - ty * tiles_x;
-    lx = p % tile_w;
-    ly = p / tile_w;
-    active = p < tile_h * tile_w;
-    px = (float)(tx * tile_w + lx) + 0.5f;
-    py = (float)(ty * tile_h + ly) + 0.5f;
-  }
-  __device__ void store(int* tri_id, float* depth, int tile_h, int tile_w,
-                        int width, float best_z, float best_id) const {
-    if (!active) return;
-    const size_t o = (size_t)(ty * tile_h + ly) * width + (tx * tile_w + lx);
-    tri_id[o] = (int)best_id - 1;
-    depth[o] = best_z;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-raster_kernel(const int* __restrict__ counts, const float* __restrict__ rows,
-              int* __restrict__ tri_id, float* __restrict__ depth,
-              int tiles_x, int tile_h, int tile_w, int K, int width,
-              int mxu_order) {
-  __shared__ float srow[kChunk * kCols];
-  const int t = blockIdx.x;
-  const Pixel pix(t, tiles_x, tile_h, tile_w);
-  const int count = min(max(counts[t], 0), K);
-  float best_z = 0.0f, best_id = 0.0f;
-  race_rows(rows + (size_t)t * K * kCols, count, pix.active, pix.px, pix.py,
-            mxu_order != 0, srow, best_z, best_id);
-  pix.store(tri_id, depth, tile_h, tile_w, width, best_z, best_id);
+__device__ __forceinline__ void race_rows(const float* __restrict__ rows,
+                                          int n, const Rect& rc, bool mxu,
+                                          const Ring& ring, int* wcount,
+                                          float& best_z, float& best_id) {
+  if (n <= kDirectRows)
+    race_direct(rows, n, rc, mxu, best_z, best_id);
+  else if (n > kFineRows)
+    race_rows_as<true>(rows, n, rc, mxu, ring, wcount, best_z, best_id);
+  else
+    race_rows_as<false>(rows, n, rc, mxu, ring, wcount, best_z, best_id);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// kSplit, for a capacity K above kSplitRows (the kernel without it is the
+// leaner one, and serves every K below): a bin of more than kSplitRows
+// rows is raced by several blocks (blockIdx.z),
+// kSplitRows rows each; every pixel's partial winners meet in a 64-bit
+// atomicMax on bits(depth) << 32 | id, which orders as the race does (a
+// winner's depth is never negative; -0.0 is written as +0.0), and the block
+// that arrives last writes the pixel out. keys: a zeroed 64-bit word a
+// thread of every (tile, rectangle); arrived: a zeroed counter each.
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+raster_kernel(const int* __restrict__ counts, const float* __restrict__ rows,
+              int* __restrict__ tri_id, float* __restrict__ depth,
+              unsigned long long* __restrict__ keys,
+              unsigned* __restrict__ arrived, int tiles_x, int tile_h,
+              int tile_w, int K, int width, int mxu_order) {
+  __shared__ __align__(16) unsigned char ring_mem[kRingBytes];
+  __shared__ int wcount[2 * kWarps];
+  __shared__ bool last;
+  const int t = blockIdx.x;
+  const int count = min(max(counts[t], 0), K);
+  const int parts = kSplit ? max(1, (count + kSplitRows - 1) / kSplitRows) : 1;
+  if ((int)blockIdx.z >= parts) return;
+  const Rect rc(t, tiles_x, tile_h, tile_w);
+  const Ring ring(ring_mem);
+  const int first = kSplit ? blockIdx.z * kSplitRows : 0;
+  float best_z = 0.0f, best_id = 0.0f;
+  race_rows(rows + ((size_t)t * K + first) * kCols,
+            kSplit ? min(count - first, kSplitRows) : count, rc,
+            mxu_order != 0, ring, wcount, best_z, best_id);
+  if (kSplit && parts > 1) {
+    const size_t rect = (size_t)t * gridDim.y + blockIdx.y;
+    unsigned long long* key = keys + rect * kThreads + threadIdx.x;
+    const unsigned long long mine =
+        ((unsigned long long)__float_as_uint(best_z + 0.0f) << 32) |
+        (unsigned)(int)best_id;
+    if (mine) atomicMax(key, mine);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      last = atomicAdd(arrived + rect, 1u) == (unsigned)parts - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const unsigned long long won = __ldcg(key);
+    best_z = __uint_as_float((unsigned)(won >> 32));
+    best_id = (float)(unsigned)(won & 0xffffffffull);
+  }
+  rc.store(tri_id, depth, width, best_z, best_id);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 raster_stream_kernel(const int* __restrict__ starts,
                      const float* __restrict__ rows, int* __restrict__ tri_id,
                      float* __restrict__ depth, int tiles_x, int tile_h,
                      int tile_w, int kb, int nb, int width, int mxu_order) {
-  __shared__ float srow[kChunk * kCols];
+  __shared__ __align__(16) unsigned char ring_mem[kRingBytes];
+  __shared__ int wcount[2 * kWarps];
   const int t = blockIdx.x;
-  const Pixel pix(t, tiles_x, tile_h, tile_w);
+  const Rect rc(t, tiles_x, tile_h, tile_w);
+  const Ring ring(ring_mem);
   const int start = starts[t];
   const int stop = tr::walk_stop(starts, t, kb, nb);
   float best_z = 0.0f, best_id = 0.0f;
-  race_rows(rows + (size_t)start * kCols, max(stop - start, 0), pix.active,
-            pix.px, pix.py, mxu_order != 0, srow, best_z, best_id);
-  pix.store(tri_id, depth, tile_h, tile_w, width, best_z, best_id);
+  race_rows(rows + (size_t)start * kCols, max(stop - start, 0), rc,
+            mxu_order != 0, ring, wcount, best_z, best_id);
+  rc.store(tri_id, depth, width, best_z, best_id);
 }
 
+// group > 0: the vector store, each warp composing `group` pixels of its
+// row at a time (a multiple of 4, so a group is a whole number of 16-byte
+// words); needs tile_w % 32 == 0 and kWarps * group * D floats of dynamic
+// shared memory. group == 0: the scalar store.
 __global__ void __launch_bounds__(kThreads)
 raster_resolve_kernel(const int* __restrict__ counts,
                       const float* __restrict__ rows,
                       const float* __restrict__ table, int* __restrict__ tri_id,
                       float* __restrict__ depth, float* __restrict__ sel,
                       int tiles_x, int tile_h, int tile_w, int K, int width,
-                      int T, int D, int mxu_order) {
-  __shared__ float srow[kChunk * kCols];
+                      int T, int D, int mxu_order, int group) {
+  extern __shared__ float4 dyn[];    // the ring, then the row staging
+  __shared__ int wcount[2 * kWarps];
   __shared__ int swin[kThreads];
+  const Ring ring(dyn);
   const int t = blockIdx.x;
-  const Pixel pix(t, tiles_x, tile_h, tile_w);
+  const Rect rc(t, tiles_x, tile_h, tile_w);
   const int count = min(max(counts[t], 0), K);
   float best_z = 0.0f, best_id = 0.0f;
-  race_rows(rows + (size_t)t * K * kCols, count, pix.active, pix.px, pix.py,
-            mxu_order != 0, srow, best_z, best_id);
-  pix.store(tri_id, depth, tile_h, tile_w, width, best_z, best_id);
-  swin[threadIdx.x] = (int)best_id - 1;
-  __syncthreads();
-  const int p0 = blockIdx.y * kThreads;
-  const int n = min(kThreads, tile_h * tile_w - p0);   // pixels of the block
-  for (int k = threadIdx.x; k < n * D; k += kThreads) {
-    const int q = k / D;
-    const int j = k - q * D;
-    const int p = p0 + q;
-    const int ly = p / tile_w;
-    const int lx = p - ly * tile_w;
-    const int id = swin[q];
-    const float v = (id >= 0 && id < T) ? __ldg(table + (size_t)id * D + j)
-                                        : 0.0f;
-    sel[((size_t)(pix.ty * tile_h + ly) * width + pix.tx * tile_w + lx) * D +
-        j] = v;
+  race_rows(rows + (size_t)t * K * kCols, count, rc, mxu_order != 0, ring,
+            wcount, best_z, best_id);
+  rc.store(tri_id, depth, width, best_z, best_id);
+  int win = (int)best_id - 1;
+  if (win >= T) win = -1;
+  if (group == 0) {
+    swin[threadIdx.x] = win;
+    __syncthreads();
+    for (int k = threadIdx.x; k < kThreads * D; k += kThreads) {
+      const int q = k / D;
+      const int j = k - q * D;
+      const int ly = q >> 5, lx = q & 31;
+      if (lx >= rc.w || ly >= rc.h) continue;
+      const int id = swin[q];
+      const float v = id >= 0 ? __ldg(table + (size_t)id * D + j) : 0.0f;
+      sel[((size_t)(rc.oy + ly) * width + rc.ox + lx) * D + j] = v;
+    }
+    return;
   }
+  __syncthreads();                   // every warp is done with the ring
+  if (!rc.row_active) return;
+  float* stage = reinterpret_cast<float*>(dyn) + (size_t)rc.warp * group * D;
+  for (int p0 = 0; p0 < kRectW; p0 += group) {
+    const int pixels = min(group, kRectW - p0);
+    const int words = pixels * D / 4;
+#pragma unroll 4
+    for (int p = 0; p < pixels; ++p) {
+      const int id = __shfl_sync(kFull, win, p0 + p);
+      const float* src = table + (size_t)max(id, 0) * D;
+      for (int j = rc.lane; j < D; j += 32)
+        stage[p * D + j] = id >= 0 ? __ldg(src + j) : 0.0f;
+    }
+    __syncwarp();
+    float4* out = reinterpret_cast<float4*>(
+        sel + ((size_t)(rc.oy + rc.warp) * width + rc.ox + p0) * D);
+    const float4* in = reinterpret_cast<const float4*>(stage);
+    for (int q = rc.lane; q < words; q += 32) __stcs(out + q, in[q]);
+    __syncwarp();
+  }
+}
+
+dim3 raster_grid(int n_tiles, int tile_h, int tile_w) {
+  return dim3(n_tiles, ((tile_w + kRectW - 1) / kRectW) *
+                           ((tile_h + kRectH - 1) / kRectH));
 }
 
 }  // namespace
 
+// Bytes of zeroed scratch tr_raster needs for these shapes: 0 unless K
+// allows a bin of more than kSplitRows rows.
+extern "C" long long tr_raster_scratch_bytes(int n_tiles, int tile_h,
+                                             int tile_w, int K) {
+  if (K <= kSplitRows) return 0;
+  const long long rects = (long long)n_tiles * raster_grid(1, tile_h, tile_w).y;
+  return rects * kThreads * 8 + rects * 4;
+}
+
 extern "C" int tr_raster(const void* counts, const void* rows, void* tri_id,
-                         void* depth, int n_tiles, int tiles_x, int tile_h,
-                         int tile_w, int K, int width, int mxu_order,
-                         void* stream) {
-  const int P = tile_h * tile_w;
-  dim3 grid(n_tiles, (P + kThreads - 1) / kThreads);
-  raster_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+                         void* depth, void* scratch, int n_tiles, int tiles_x,
+                         int tile_h, int tile_w, int K, int width,
+                         int mxu_order, void* stream) {
+  dim3 grid = raster_grid(n_tiles, tile_h, tile_w);
+  grid.z = (K + kSplitRows - 1) / kSplitRows;
+  if (grid.z > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  unsigned long long* keys = (unsigned long long*)scratch;
+  unsigned* arrived =
+      (unsigned*)(keys + (size_t)n_tiles * grid.y * kThreads);
+  auto kernel = grid.z > 1 ? raster_kernel<true> : raster_kernel<false>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)counts, (const float*)rows, (int*)tri_id, (float*)depth,
-      tiles_x, tile_h, tile_w, K, width, mxu_order);
+      keys, arrived, tiles_x, tile_h, tile_w, K, width, mxu_order);
   return (int)cudaGetLastError();
 }
 
@@ -195,9 +514,8 @@ extern "C" int tr_raster_stream(const void* starts, const void* rows,
                                 int tiles_x, int tile_h, int tile_w, int kb,
                                 int nb, int width, int mxu_order,
                                 void* stream) {
-  const int P = tile_h * tile_w;
-  dim3 grid(n_tiles, (P + kThreads - 1) / kThreads);
-  raster_stream_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  raster_stream_kernel<<<raster_grid(n_tiles, tile_h, tile_w), kThreads, 0,
+                         (cudaStream_t)stream>>>(
       (const int*)starts, (const float*)rows, (int*)tri_id, (float*)depth,
       tiles_x, tile_h, tile_w, kb, nb, width, mxu_order);
   return (int)cudaGetLastError();
@@ -208,11 +526,22 @@ extern "C" int tr_raster_resolve(const void* counts, const void* rows,
                                  void* sel, int n_tiles, int tiles_x,
                                  int tile_h, int tile_w, int K, int width,
                                  int T, int D, int mxu_order, void* stream) {
-  const int P = tile_h * tile_w;
-  dim3 grid(n_tiles, (P + kThreads - 1) / kThreads);
-  raster_resolve_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  // pixels a warp composes at a time: all 32 while the block's staging
+  // stays within 64 KB, else the largest multiple of 4 that does
+  constexpr int kStageBytes = 64 * 1024;
+  int group = 0;
+  if (tile_w % kRectW == 0 && D > 0)
+    group = min(kRectW, kStageBytes / (kWarps * D * 4) / 4 * 4);
+  const int stage = kWarps * group * D * 4;
+  const int smem = stage > kRingBytes ? stage : kRingBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      raster_resolve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kStageBytes);
+  if (err != cudaSuccess) return (int)err;
+  raster_resolve_kernel<<<raster_grid(n_tiles, tile_h, tile_w), kThreads,
+                          smem, (cudaStream_t)stream>>>(
       (const int*)counts, (const float*)rows, (const float*)table,
       (int*)tri_id, (float*)depth, (float*)sel, tiles_x, tile_h, tile_w, K,
-      width, T, D, mxu_order);
+      width, T, D, mxu_order, group);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,7 @@ the flags, so an edited source rebuilds), loaded with ``ctypes``. The
 build happens on the first CUDA launch, never at import, and never falls
 back: a failed build raises.
 
-Every entry point returns ``cudaGetLastError()`` after its launch;
+Every launching entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.
 """
 
@@ -38,11 +38,14 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of every entry point: (argtypes), all return int
+# C signature of every entry point: (argtypes); all return int but those
+# of RETURNS
 SIGNATURES = {
-    # counts, rows, tri_id, depth, n_tiles, tiles_x, tile_h, tile_w, K,
-    # width, mxu_order, stream
-    "tr_raster": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # n_tiles, tile_h, tile_w, K -> bytes of zeroed scratch tr_raster needs
+    "tr_raster_scratch_bytes": (_I, _I, _I, _I),
+    # counts, rows, tri_id, depth, scratch, n_tiles, tiles_x, tile_h,
+    # tile_w, K, width, mxu_order, stream
+    "tr_raster": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # starts, rows, tri_id, depth, n_tiles, tiles_x, tile_h, tile_w, kb,
     # nb, width, mxu_order, stream
     "tr_raster_stream": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -64,6 +67,8 @@ SIGNATURES = {
     # texels, idx, fx, fy, out, R, C, N, channel_first, stream
     "tr_windowed_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
+
+RETURNS = {"tr_raster_scratch_bytes": ctypes.c_longlong}
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of the last build + load
@@ -126,7 +131,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = RETURNS.get(name, ctypes.c_int)
         _lib = lib
         build_seconds = time.perf_counter() - t0
     return _lib

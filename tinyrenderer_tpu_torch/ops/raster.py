@@ -15,7 +15,10 @@
    ``rasterize_stream`` over the stream's walked windows (kernel K4) and
    ``rasterize_resolve_binned`` (kernel K6: K1's race plus the winner's
    resolve-table row, the ``fused_resolve`` configuration), all in
-   ``csrc/raster.cu``.
+   ``csrc/raster.cu``. The kernels cull before they race: a row is tested
+   against a rectangle of pixels first (:func:`rect_rejects`), which
+   :func:`rasterize_binned_culled_ref` repeats as plain tensor code so
+   that its exactness can be tested without a card.
 
 Depth is reverse-Z in (0, 1], cleared to 0. Front faces are CCW in NDC,
 which is a negative signed area in the y-down screen space.
@@ -391,13 +394,11 @@ def _untile(tiles: torch.Tensor) -> torch.Tensor:
     return tiles.permute(0, 2, 1, 3).reshape(ty * th, tx * tw)
 
 
-def rasterize_binned_ref(bins: Bins, tile_h: int, tile_w: int,
-                         chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1 (any device): the Pallas kernel's chunked
-    depth race, run for all tiles at once, ``chunk`` bin rows at a time.
-
-    Semantics are the kernel's (init ``best_z = 0``): a covered pixel whose
-    depth is exactly 0 still wins on its id."""
+def _race_bins(bins: Bins, tile_h: int, tile_w: int, chunk: int,
+               keep: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked depth race of :func:`rasterize_binned_ref`; ``keep``
+    (ty, tx, K, P) bool, when given, takes rows out of a pixel's race."""
     ty, tx, K, _ = bins.rows.shape
     dev = bins.rows.device
     P = tile_h * tile_w
@@ -421,6 +422,8 @@ def rasterize_binned_ref(bins: Bins, tile_h: int, tile_w: int,
         idf = s[:, :, :, _IDF]
         covered = ((ev(_E0X) >= 0.0) & (ev(_E1X) >= 0.0) & (ev(_E2X) >= 0.0)
                    & (idf > 0.0) & live[:, :, c0:c0 + chunk, None])
+        if keep is not None:
+            covered = covered & keep[:, :, c0:c0 + chunk]
         cand = torch.where(covered, ev(_ZX), torch.full((), -1.0, device=dev))
         chunk_z = cand.max(dim=2).values                          # (ty, tx, P)
         chunk_id = torch.where(cand >= chunk_z[:, :, None], idf,
@@ -431,6 +434,110 @@ def rasterize_binned_ref(bins: Bins, tile_h: int, tile_w: int,
     tri_id = best_id.to(I32) - 1
     return (_untile(tri_id.reshape(ty, tx, tile_h, tile_w)),
             _untile(best_z.reshape(ty, tx, tile_h, tile_w)))
+
+
+def rasterize_binned_ref(bins: Bins, tile_h: int, tile_w: int,
+                         chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1 (any device): the Pallas kernel's chunked
+    depth race, run for all tiles at once, ``chunk`` bin rows at a time,
+    every row tested on every pixel of its tile.
+
+    Semantics are the kernel's (init ``best_z = 0``): a covered pixel whose
+    depth is exactly 0 still wins on its id."""
+    return _race_bins(bins, tile_h, tile_w, chunk)
+
+
+def rect_rejects(rows: torch.Tensor, x0, y0, w, h, mxu: bool) -> torch.Tensor:
+    """Whether each setup row ``rows[..., :16]`` can be dropped for the
+    rectangle of ``w`` x ``h`` pixels whose first pixel is (``x0``, ``y0``)
+    (ints or tensors that broadcast against ``rows[..., 0]``): its id is
+    not > 0, or one of its edge planes is < 0 even at the pixel centre
+    where it is largest. K1, K4 and K6 cull with this predicate
+    (``tr::edges_reject`` in ``csrc/common.cuh``).
+
+    It is exact, not merely safe: :func:`fp.plane` composes correctly
+    rounded operations, each monotone, so for a fixed ``py`` it rises or
+    falls with ``px`` as the sign of ``a`` says, and likewise in ``py``
+    with ``b``; its largest value over the rectangle's pixel centres is
+    its own value at the corner those signs pick. A NaN there drops
+    nothing, so the per-pixel test decides as before."""
+    def f32(v):
+        return torch.as_tensor(v, device=rows.device).to(F32)
+
+    xlo, ylo = f32(x0) + 0.5, f32(y0) + 0.5
+    xhi, yhi = f32(x0 + w - 1) + 0.5, f32(y0 + h - 1) + 0.5
+
+    def best(lo):
+        a, b, c = rows[..., lo], rows[..., lo + 1], rows[..., lo + 2]
+        return plane(a, b, c, torch.where(a >= 0.0, xhi, xlo),
+                     torch.where(b >= 0.0, yhi, ylo), mxu)
+
+    return (~(rows[..., _IDF] > 0.0) | (best(_E0X) < 0.0)
+            | (best(_E1X) < 0.0) | (best(_E2X) < 0.0))
+
+
+def rasterize_binned_culled_ref(bins: Bins, tile_h: int, tile_w: int,
+                                rect: tuple[int, int] = (8, 32),
+                                chunk: int = 32
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rasterize_binned_ref` with the kernels' cull as plain tensor
+    code: each tile is cut into rectangles of ``rect`` = (height, width)
+    pixels, the ragged ones clipped to the tile, and a pixel races only the
+    rows that :func:`rect_rejects` leaves for its rectangle. Bit-equal to
+    the exhaustive race. No frame calls it: it exists to test the cull."""
+    ty, tx, K, _ = bins.rows.shape
+    dev = bins.rows.device
+    rh, rw = rect
+    ry, rx = -(-tile_h // rh), -(-tile_w // rw)
+    iy = torch.arange(ry, device=dev)[:, None] * rh               # (ry, 1)
+    ix = torch.arange(rx, device=dev)[None, :] * rw               # (1, rx)
+    x0 = torch.arange(tx, device=dev)[None, :, None, None] * tile_w + ix
+    y0 = torch.arange(ty, device=dev)[:, None, None, None] * tile_h + iy
+    w = (tile_w - ix).clamp(max=rw)
+    h = (tile_h - iy).clamp(max=rh)
+    rej = rect_rejects(bins.rows[:, :, :, None, None, :], x0[:, :, None],
+                       y0[:, :, None], w, h,
+                       tile_h * tile_w > _VPU_PLANES_MAX_P)  # (ty,tx,K,ry,rx)
+    p = torch.arange(tile_h * tile_w, device=dev)
+    of_pixel = (p // tile_w) // rh * rx + (p % tile_w) // rw      # (P,)
+    keep = ~rej.reshape(ty, tx, K, ry * rx)[:, :, :, of_pixel]
+    return _race_bins(bins, tile_h, tile_w, chunk, keep)
+
+
+def live_rows(bins: Bins) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows a dense bin array races, compacted: (rows (N, 16), tile
+    (N,) int64), the first ``counts`` rows of every tile."""
+    ty, tx, K, _ = bins.rows.shape
+    live = (torch.arange(K, device=bins.rows.device)
+            < bins.counts.reshape(-1, 1)).reshape(-1)
+    tile = torch.arange(ty * tx, device=bins.rows.device).repeat_interleave(K)
+    return bins.rows.reshape(-1, SETUP_COLS)[live], tile[live]
+
+
+def covered_pairs(rows: torch.Tensor, tile: torch.Tensor, tiles_x: int,
+                  tile_h: int, tile_w: int) -> int:
+    """How many (row, pixel centre) pairs the exhaustive test covers: row
+    ``rows[i]`` (N, 16) on the pixels of its tile ``tile[i]``, all three
+    edges >= 0 and the id > 0. It is the work a raster of these rows
+    cannot avoid (one depth race step a pair), whatever it culls."""
+    P = tile_h * tile_w
+    mxu = P > _VPU_PLANES_MAX_P
+    p = torch.arange(P, device=rows.device)
+    total = 0
+    chunk = max(1, (1 << 22) // P)           # ~4 M pixel evaluations a step
+    for c0 in range(0, rows.shape[0], chunk):
+        s = rows[c0:c0 + chunk, :, None]                          # (c, 16, 1)
+        t = tile[c0:c0 + chunk, None]                             # (c, 1)
+        px = ((t % tiles_x) * tile_w + p % tile_w).to(F32) + 0.5  # (c, P)
+        py = ((t // tiles_x) * tile_h + p // tile_w).to(F32) + 0.5
+
+        def ev(lo):
+            return plane(s[:, lo], s[:, lo + 1], s[:, lo + 2], px, py, mxu)
+
+        covered = ((ev(_E0X) >= 0.0) & (ev(_E1X) >= 0.0) & (ev(_E2X) >= 0.0)
+                   & (s[:, _IDF] > 0.0))
+        total += int(covered.sum())
+    return total
 
 
 def rasterize_binned(bins: Bins, tile_h: int, tile_w: int
@@ -455,8 +562,15 @@ def rasterize_binned(bins: Bins, tile_h: int, tile_w: int
     tri_id = torch.empty((H, W), dtype=I32, device=rows.device)
     depth = torch.empty((H, W), dtype=F32, device=rows.device)
     lib = kernels.library()
+    # a capacity that allows a long bin has the kernel split it over several
+    # blocks, which meet in zeroed scratch
+    nbytes = lib.tr_raster_scratch_bytes(ty * tx, tile_h, tile_w, K)
+    scratch = (torch.zeros(-(-nbytes // 8), dtype=torch.int64,
+                           device=rows.device) if nbytes else None)
     code = lib.tr_raster(counts.data_ptr(), rows.data_ptr(), tri_id.data_ptr(),
-                         depth.data_ptr(), ty * tx, tx, tile_h, tile_w, K, W,
+                         depth.data_ptr(),
+                         None if scratch is None else scratch.data_ptr(),
+                         ty * tx, tx, tile_h, tile_w, K, W,
                          int(tile_h * tile_w > _VPU_PLANES_MAX_P),
                          kernels.stream_handle(rows.device))
     kernels.check("tr_raster", code)
@@ -550,6 +664,19 @@ def stream_tiles(starts: torch.Tensor, Ls: int) -> torch.Tensor:
     return torch.searchsorted(starts[1:].contiguous(), pos, right=True)
 
 
+def walked_rows(sbins: StreamBins, n_tiles: int, kmax: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per stream row: (whether its tile's walked window holds it (Ls,)
+    bool, its tile (Ls,) int64, clamped for the padding)."""
+    Ls = sbins.rows.shape[0]
+    _, stop = walked_windows(sbins.starts, Ls, kmax)
+    tile = stream_tiles(sbins.starts, Ls)
+    walked = ((tile < n_tiles)
+              & (torch.arange(Ls, device=sbins.rows.device)
+                 < stop[tile.clamp(max=n_tiles - 1)]))
+    return walked, tile.clamp(max=n_tiles - 1)
+
+
 def rasterize_stream_ref(sbins: StreamBins, tiles_y: int, tiles_x: int,
                          tile_h: int, tile_w: int, kmax: int
                          ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -567,11 +694,7 @@ def rasterize_stream_ref(sbins: StreamBins, tiles_y: int, tiles_x: int,
     P = tile_h * tile_w
     mxu = P > _VPU_PLANES_MAX_P
     dev = sbins.rows.device
-    _, stop = walked_windows(sbins.starts, Ls, kmax)
-    tile = stream_tiles(sbins.starts, Ls)
-    walked = ((tile < n_tiles) & (torch.arange(Ls, device=dev)
-                                  < stop[tile.clamp(max=n_tiles - 1)]))
-    tile = tile.clamp(max=n_tiles - 1)
+    walked, tile = walked_rows(sbins, n_tiles, kmax)
     p = torch.arange(P, device=dev)
     best = torch.zeros(n_tiles * P, dtype=torch.int64, device=dev)
     chunk = max(1, (1 << 21) // P)           # ~2 M pixel evaluations a step
