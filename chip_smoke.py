@@ -94,11 +94,14 @@ LEVEL = os.path.join(ROOT, "levels", "demo.lvl")
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOPS = 67e12
-# the kernels of tinyrenderer_tpu_torch/csrc, by their __global__ names
-GLOBALS = {"K1": "raster_kernel", "K2": "select_eval_kernel",
-           "K3": "shade_kernel", "K4": "raster_stream_kernel",
-           "K5": "select_eval_stream_kernel", "K6": "raster_resolve_kernel",
-           "K7": "windowed_blend_kernel"}
+# the kernels of tinyrenderer_tpu_torch/csrc, by their __global__ names (K4
+# is its list-building kernel and its raster; K7 its word and byte kernels)
+GLOBALS = {"K1": ("raster_kernel",), "K2": ("select_eval_kernel",),
+           "K3": ("shade_kernel",),
+           "K4": ("raster_stream_kernel", "stream_parts_kernel"),
+           "K5": ("select_eval_stream_kernel",),
+           "K6": ("raster_resolve_kernel",),
+           "K7": ("windowed_blend_kernel", "windowed_blend_bytes_kernel")}
 
 
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -202,8 +205,8 @@ def _device_profile(engine, steady_ms: float, n: int = 5) -> dict:
         device_us += us
         launches += e.count
         entries.append((us, e.count, e.key))
-        for k, name in GLOBALS.items():
-            if re.search(rf"\b{name}(\b[<(]|$)", e.key):
+        for k, names in GLOBALS.items():
+            if any(re.search(rf"\b{name}(\b[<(]|$)", e.key) for name in names):
                 kernel_us[k] += us
     if device_us <= 0:
         raise RuntimeError("the profiler saw no device time")

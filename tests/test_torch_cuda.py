@@ -270,6 +270,137 @@ def test_stream_raster_kernel_matches_plain(cuda, th, tw, Ls, kmax, cluster):
     assert torch.equal(tid, rid) and torch.equal(z, rz)
 
 
+def _one_tile_stream(dev, n_rows, Ls, tw=128, th=8, seed=3):
+    """A stream whose only tile (th x tw pixels) holds ``n_rows`` rows of
+    small triangles, the later a row the nearer it is, so that a row the
+    walk cuts off would have won wherever it covers a pixel."""
+    rng = np.random.default_rng(seed)
+    T = n_rows
+    c = rng.uniform(-0.95, 0.95, (T, 1, 2))
+    xy = c + rng.uniform(-0.06, 0.06, (T, 3, 2)) * (1.0, 4.0)
+    z = np.linspace(0.05, 0.9, T).reshape(T, 1, 1) * np.ones((1, 3, 1))
+    clip = np.concatenate([xy, z, np.ones((T, 3, 1))], 2).reshape(-1, 4)
+    setup = raster.triangle_setup(
+        torch.from_numpy(clip.astype(np.float32)).to(dev),
+        torch.arange(3 * T, dtype=torch.int32, device=dev).reshape(T, 3),
+        torch.ones(T, dtype=torch.bool, device=dev), tw, th, "none")
+    rows = torch.zeros(Ls, 16, device=dev)
+    rows[:T] = setup.rows
+    assert bool(setup.valid.all())
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return raster.StreamBins(
+        ids=torch.full((Ls,), -1, dtype=torch.int32, device=dev), rows=rows,
+        starts=torch.tensor([0, T], dtype=torch.int32, device=dev),
+        counts=torch.tensor([[T]], dtype=torch.int32, device=dev),
+        overflow=zero, stream_overflow=zero, big_overflow=zero)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,Ls,kmax", [
+    (0, 2048, 1024),        # an empty stream
+    (300, 2048, 1024),      # one step and a bit
+    (2049, 8192, 2048),     # kmax + 1 rows, all walked (nb = 2)
+    (5000, 8192, 16),       # cut at 4096 rows: the nearest 904 never race
+    (8192, 8192, 8192)])    # one window of the whole stream, in parts
+def test_stream_raster_kernel_one_tile(cuda, n_rows, Ls, kmax):
+    """One 8 x 128 tile whose window is raced in up to 32 parts that meet in
+    one slot."""
+    sb = _one_tile_stream(cuda, n_rows, Ls)
+    tid, z = raster.rasterize_stream(sb, 1, 1, 8, 128, kmax)
+    rid, rz = raster.rasterize_stream_ref(sb, 1, 1, 8, 128, kmax)
+    torch.cuda.synchronize()
+    if n_rows:
+        assert (rid >= 0).float().mean() > 0.2
+        _, stop = raster.walked_windows(sb.starts, Ls, kmax)
+        assert int(rid.max()) < int(stop[0])
+    else:
+        assert (rid == -1).all()
+    assert torch.equal(tid, rid) and _same(z, rz)
+
+
+@pytest.mark.cuda
+def test_stream_raster_kernel_writes_every_pixel_of_overlapping_windows(cuda):
+    """Starts that no binner gives: four of eight tiles claim the same 1000
+    rows, 32 parts where the list has room for 16. The first is raced in
+    parts, the others whole, and every tile equals the plain version of a
+    stream in which it alone holds the rows."""
+    th, tw, n_tiles, Ls, T = 8, 128, 8, 1024, 1000
+    rng = np.random.default_rng(5)
+    c = rng.uniform(-0.95, 0.95, (T, 1, 2))
+    xy = c + rng.uniform(-0.02, 0.02, (T, 3, 2)) * (1.0, 30.0)
+    z = rng.uniform(0.05, 0.9, (T, 3, 1))
+    clip = np.concatenate([xy, z, np.ones((T, 3, 1))], 2).reshape(-1, 4)
+    setup = raster.triangle_setup(
+        torch.from_numpy(clip.astype(np.float32)).to(cuda),
+        torch.arange(3 * T, dtype=torch.int32, device=cuda).reshape(T, 3),
+        torch.ones(T, dtype=torch.bool, device=cuda), n_tiles * tw, th, "none")
+    rows = torch.zeros(Ls, 16, device=cuda)
+    rows[:T] = setup.rows
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+
+    def bins(starts):
+        return raster.StreamBins(
+            ids=torch.full((Ls,), -1, dtype=torch.int32, device=cuda),
+            rows=rows, starts=torch.tensor(starts, dtype=torch.int32,
+                                           device=cuda),
+            counts=torch.zeros((1, n_tiles), dtype=torch.int32, device=cuda),
+            overflow=zero, stream_overflow=zero, big_overflow=zero)
+
+    tid, z = raster.rasterize_stream(bins([0, T] * 4 + [0]), 1, n_tiles, th,
+                                     tw, 1024)
+    torch.cuda.synchronize()
+    for t in range(n_tiles):
+        alone = bins([0] * (t + 1) + [T if t % 2 == 0 else 0] * (n_tiles - t))
+        rid, rz = raster.rasterize_stream_ref(alone, 1, n_tiles, th, tw, 1024)
+        cols = slice(t * tw, (t + 1) * tw)
+        assert ((rid[:, cols] >= 0).any()) == (t % 2 == 0)
+        assert torch.equal(tid[:, cols], rid[:, cols])
+        assert _same(z[:, cols], rz[:, cols])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,tw", [(8, 50), (20, 20), (5, 200), (16, 256)])
+def test_stream_raster_kernel_ragged_tiles(cuda, th, tw):
+    """Tile widths that 32, 8 or 4 do not divide (the scalar store), tiles
+    lower than a block's eight rows, and tiles of several sub-tiles."""
+    _, sb = _stream(cuda, th, tw, 16384)
+    ty, tx = sb.counts.shape
+    tid, z = raster.rasterize_stream(sb, ty, tx, th, tw, 4096)
+    rid, rz = raster.rasterize_stream_ref(sb, ty, tx, th, tw, 4096)
+    assert (rid >= 0).float().mean() > 0.2
+    assert torch.equal(tid, rid) and _same(z, rz)
+
+
+@pytest.mark.cuda
+def test_stream_raster_kernel_highpoly(cuda, monkeypatch):
+    """The settled stream of the 108k-triangle world at 1920x1080 in 8x128
+    tiles: its long silhouette windows are raced in parts."""
+    from tinyrenderer_tpu_torch.config import RenderConfig
+    from tinyrenderer_tpu_torch.render.engine import Engine
+    from tinyrenderer_tpu_torch.scene import demo
+    calls = []
+    inner = raster.rasterize_stream
+
+    def spy(*args):
+        calls.append(args)
+        return inner(*args)
+    monkeypatch.setattr(raster, "rasterize_stream", spy)
+    eng = Engine.from_world(
+        demo.build_highpoly_world(9), camera=demo.build_demo_camera(1920, 1080),
+        device=cuda, cfg=RenderConfig(
+            width=1920, height=1080, max_instances=64, max_vertices=131072,
+            max_triangles=131072, bin_capacity=1024, tile_h=8))
+    for _ in range(5):                       # the capacities settle in three
+        eng.run_frame(0.0)
+    sb, ty, tx, th, tw, kmax = calls[-1]
+    start, stop = raster.walked_windows(sb.starts, sb.rows.shape[0], kmax)
+    assert int((stop - start).max()) > 1024 and (th, tw) == (8, 128)
+    tid, z = inner(sb, ty, tx, th, tw, kmax)
+    rid, rz = raster.rasterize_stream_ref(sb, ty, tx, th, tw, kmax)
+    assert len(torch.unique(rid)) > 10000
+    assert torch.equal(tid, rid) and _same(z, rz)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("slim", [True, False])
 @pytest.mark.parametrize("bf16", [True, False])
@@ -325,16 +456,20 @@ def test_shade_kernel_matches_plain(cuda, textured):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("channel_first", [False, True])
-@pytest.mark.parametrize("N", [1, 1000, 65536])
-def test_windowed_blend_kernel_matches_plain(cuda, channel_first, N):
-    """C = 9, indices reaching the pool's last row, fractions at 0 and
-    just below 1: bit-equal to the plain version."""
+@pytest.mark.parametrize("C", [9, 4, 5])       # 4, 5: no word kernel, byte loop
+@pytest.mark.parametrize("N", [0, 1, 255, 257, 1000, 65536])
+def test_windowed_blend_kernel_matches_plain(cuda, channel_first, C, N):
+    """Indices below 0, at the pool's last row and past it (clamped),
+    fractions at 0 and just below 1, tap counts around a block's and a
+    warp's: bit-equal to the plain version in both layouts."""
     g = torch.Generator(device="cpu").manual_seed(N)
-    R, C = 4000, 9
+    R = 4000
     texels = torch.randint(0, 256, (R, 4 * C), generator=g,
                            dtype=torch.uint8).to(cuda)
     idx = torch.randint(0, R, (N,), generator=g, dtype=torch.int32)
     idx[: min(N, 5)] = R - 1
+    idx[5:9] = torch.tensor([-1, -2 ** 31, R, 2 ** 31 - 1],
+                            dtype=torch.int32)[: max(0, min(N, 9) - 5)]
     fx, fy = torch.rand(N, generator=g), torch.rand(N, generator=g)
     fx[: min(N, 3)] = 0.0
     fy[: min(N, 3)] = 1.0 - 2.0 ** -24
@@ -343,6 +478,22 @@ def test_windowed_blend_kernel_matches_plain(cuda, channel_first, N):
     a = sampling.windowed_blend(texels, idx, fx, fy, C, channel_first)
     b = sampling.windowed_blend_ref(texels, idx, fx, fy, C, channel_first)
     torch.cuda.synchronize()
-    assert sampling.K7_LAUNCHES == n + 1
+    assert sampling.K7_LAUNCHES == n + (N > 0)
     assert a.shape == b.shape == ((C, N) if channel_first else (N, C))
-    assert torch.equal(a, b)
+    assert _same(a, b)
+
+
+@pytest.mark.cuda
+def test_windowed_blend_refuses_a_misaligned_pool(cuda):
+    """The word kernel reads rows as 32-bit words: a pool view that starts
+    off a 4-byte boundary raises, and the same bytes aligned pass."""
+    R, C = 64, 9
+    buf = torch.randint(0, 256, (R * 4 * C + 4,), dtype=torch.uint8).to(cuda)
+    idx = torch.arange(R, dtype=torch.int32, device=cuda)
+    f = torch.rand(R, device=cuda)
+    view = buf[1:1 + R * 4 * C].view(R, 4 * C)
+    assert view.is_contiguous() and view.data_ptr() % 4
+    with pytest.raises(ValueError, match="4-byte"):
+        sampling.windowed_blend(view, idx, f, f, C)
+    a = sampling.windowed_blend(view.clone(), idx, f, f, C)
+    assert _same(a, sampling.windowed_blend_ref(view, idx, f, f, C))

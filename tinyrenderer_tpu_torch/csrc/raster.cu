@@ -17,8 +17,8 @@
 // kept rows with ties broken by the larger id. The result is the maximum
 // of (depth, id), so it does not depend on the order of the rows.
 //
-// The race (race_rows, shared by all three) tests no pixel a row cannot
-// cover. A block is a 32 x 8 rectangle of its tile's pixels, a warp one
+// The race of K1 and K6 (race_rows; K4's is further down) tests no pixel
+// a row cannot cover. A block is a 32 x 8 rectangle of its tile's pixels, a warp one
 // 32-pixel row of it, a thread one pixel with best_z / best_id in
 // registers; a tile of any shape is ceil(w / 32) x ceil(h / 8) blocks, the
 // ragged ones clipped and masked. Level 1: each thread reads one row of
@@ -62,10 +62,53 @@
 // dependent loads a block starts with (count, rows), over 8160 blocks at
 // 1088 x 1920: the direct path brought the main view from 0.0268 to
 // 0.0210 ms, beside 0.0207 ms for the exhaustive race it replaces (which
-// took 6.22 ms on the high-poly shadow view, and 0.1694 ms as K4 where
-// this one takes 0.0918 ms, in the same run); sending a bin of at most 8
+// took 6.22 ms on the high-poly shadow view); sending a bin of at most 8
 // rows to the pixels untested was slower (0.0237 against 0.0211 ms).
 // tools/tune_raster.py times such variants side by side.
+//
+// K4 is bound by neither bytes nor operations but by how unevenly its work
+// lies: on the 108k-triangle frame (1080 x 1920 in 2025 tiles of 8 x 128,
+// 79483 walked rows) 1781 tiles are empty, 37 hold more than 512 rows (the
+// spheres' silhouettes, up to 1380), and a row covers 2.2 pixels: 176555
+// (row, pixel) pairs in all. Racing rows on pixels wastes the pixels, and a
+// block a tile leaves most multiprocessors idle behind the long windows.
+// The design:
+//   - a one-block kernel (stream_parts_kernel) cuts every window into
+//     parts of at most kStreamSplit rows with a prefix sum over the tiles;
+//     the raster's grid is that list, so every block has at most
+//     kStreamSplit rows and the hardware spreads the long windows;
+//   - a block owns a sub-tile (8 rows of at most 128 pixels, so the whole
+//     8 x 128 tile: a row is read by one block, not four) as 64-bit keys
+//     bits(depth) << 32 | id in shared memory, which order as the race;
+//   - the race is row-parallel. Four lanes take a row, each a group of 32
+//     columns and then its 8-column cells, with the exact rejection; the
+//     (row, cell) units left go to a queue in shared memory. Eight lanes
+//     take a unit, a lane a pixel column: the plane of an edge is monotone
+//     along the column under the rounded arithmetic, so a binary search
+//     with the plane's own values finds the rows the edge admits, three
+//     searches the rows the row covers (none, for most columns), and only
+//     those pixels get the depth plane and an atomicMax of their key;
+//   - the parts of a long window each write their keys to their own
+//     buffer, and the last to finish (a counter a window) takes the
+//     maxima and writes the pixels out; nothing has to be zeroed.
+// Times a launch on an H100 80GB HBM3 at 700 W, the kernel it replaced
+// (blocks of 32 x 8 pixels, four a tile, each racing the tile's whole
+// window) in the same call (tools/tune_raster.py --k4 --baseline):
+// 0.0398 against 0.0920 ms; with parts of 64 rows 0.0402, of 256 rows
+// 0.0504 ms, with whole windows 0.1137 ms. The searches take the largest
+// share of it, then the list kernel and the launch of the ~3000 blocks of
+// the list that find no work; the 135632 units keep 4.1 of their 8
+// columns, 562798 in all (tools/tune_raster.py --counts). Tried and dropped,
+// each bit-equal: per-pixel tests in place of the searches, a lane a
+// pixel of each column left (0.0499 ms); the same parts with the ring and
+// per-pixel registers of K1 over four 32-column groups (0.0845-0.0917
+// ms); whole windows raced by their own block, with idle blocks taking
+// parts of published windows (0.0815-0.1385 ms: a block that finishes
+// before a window is published helps nobody); the rows left in at most
+// two cells descended by their own thread to the pixel (slower: the lanes
+// of a warp diverge); the parts meeting in zeroed keys through global
+// atomics (the zeroing by one block cost 0.02 ms); eight units in flight a
+// warp (spills at 40 registers).
 //
 // K6 is bound by bytes: at 1088 x 1920 it writes a D = 53 float row a
 // pixel (443 MB), against a few MB of bins. The race is K1's and only its
@@ -177,16 +220,16 @@ struct Rect {
 };
 
 // One survivor at this lane's pixel.
-__device__ __forceinline__ void race_pixel(const Ring& ring, int j,
-                                           const Rect& rc, bool mxu,
-                                           float& best_z, float& best_id) {
+__device__ __forceinline__ void race_pixel(const Ring& ring, int j, float px,
+                                           float py, bool mxu, float& best_z,
+                                           float& best_id) {
   const float4* p = ring.slot(j);
   const float4 r0 = p[0], r1 = p[1], r2 = p[2];
   const float idf = ring.ids[j & (kRing - 1)];
-  const float l0 = tr::plane(r0.x, r0.y, r0.z, rc.px, rc.py, mxu);
-  const float l1 = tr::plane(r0.w, r1.x, r1.y, rc.px, rc.py, mxu);
-  const float l2 = tr::plane(r1.z, r1.w, r2.x, rc.px, rc.py, mxu);
-  const float z = tr::plane(r2.y, r2.z, r2.w, rc.px, rc.py, mxu);
+  const float l0 = tr::plane(r0.x, r0.y, r0.z, px, py, mxu);
+  const float l1 = tr::plane(r0.w, r1.x, r1.y, px, py, mxu);
+  const float l2 = tr::plane(r1.z, r1.w, r2.x, px, py, mxu);
+  const float z = tr::plane(r2.y, r2.z, r2.w, px, py, mxu);
   const bool covered = l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && idf > 0.0f;
   if (covered && (z > best_z || (z == best_z && idf > best_id))) {
     best_z = z;
@@ -229,7 +272,7 @@ __device__ __forceinline__ void drain(const Ring& ring, int done, int total,
         if (m) {
           const int b = __ffs(m) - 1;
           m &= m - 1;
-          race_pixel(ring, s + b, rc, mxu, best_z, best_id);
+          race_pixel(ring, s + b, rc.px, rc.py, mxu, best_z, best_id);
         }
       }
     } else {
@@ -243,7 +286,7 @@ __device__ __forceinline__ void drain(const Ring& ring, int done, int total,
       while (m) {
         const int b = __ffs(m) - 1;
         m &= m - 1;
-        race_pixel(ring, s + b, rc, mxu, best_z, best_id);
+        race_pixel(ring, s + b, rc.px, rc.py, mxu, best_z, best_id);
       }
     }
   }
@@ -398,22 +441,363 @@ raster_kernel(const int* __restrict__ counts, const float* __restrict__ rows,
   rc.store(tri_id, depth, width, best_z, best_id);
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-raster_stream_kernel(const int* __restrict__ starts,
-                     const float* __restrict__ rows, int* __restrict__ tri_id,
-                     float* __restrict__ depth, int tiles_x, int tile_h,
-                     int tile_w, int kb, int nb, int width, int mxu_order) {
-  __shared__ __align__(16) unsigned char ring_mem[kRingBytes];
-  __shared__ int wcount[2 * kWarps];
-  const int t = blockIdx.x;
-  const Rect rc(t, tiles_x, tile_h, tile_w);
-  const Ring ring(ring_mem);
-  const int start = starts[t];
-  const int stop = tr::walk_stop(starts, t, kb, nb);
-  float best_z = 0.0f, best_id = 0.0f;
-  race_rows(rows + (size_t)start * kCols, max(stop - start, 0), rc,
-            mxu_order != 0, ring, wcount, best_z, best_id);
-  rc.store(tri_id, depth, width, best_z, best_id);
+// ---- K4: the stream raster -------------------------------------------------
+
+// These can be set from the command line of nvcc too.
+#ifndef TR_STREAM_SPLIT_ROWS
+#define TR_STREAM_SPLIT_ROWS 128
+#endif
+#ifndef TR_STREAM_MIN_BLOCKS
+#define TR_STREAM_MIN_BLOCKS 6
+#endif
+
+// A block of K4 owns a sub-tile: kSubH rows of at most kSubW pixels, four
+// pixels a thread; an 8 x 128 tile is one sub-tile.
+constexpr int kSubW = 128;
+constexpr int kSubH = 8;
+constexpr int kSubPixels = kSubW * kSubH;
+static_assert(kSubPixels == 4 * kThreads, "four pixels a thread");
+// a sub-tile is cut into cells of kCell columns, all its rows high
+constexpr int kCell = 8;
+constexpr int kCells = kSubW / kCell;
+static_assert(kSubH == 8 && kCell == 8, "eight lanes a column, a cell");
+// rows a block takes at a step: four lanes a row
+constexpr int kRowsAtOnce = kThreads / 4;
+static_assert(kSubW == 4 * 32, "a lane a group of 32 columns");
+// a window of more rows than this is cut into parts of this many rows, a
+// block each
+constexpr int kStreamSplit = TR_STREAM_SPLIT_ROWS;
+constexpr int kStreamMinBlocks = TR_STREAM_MIN_BLOCKS;
+
+typedef unsigned long long Key;   // bits(depth) << 32 | id, 0 = background
+
+__device__ __forceinline__ Key make_key(float z, float idf) {
+  return ((Key)__float_as_uint(z + 0.0f) << 32) | (unsigned)(int)idf;
+}
+
+struct Sub {
+  int ox, oy;   // image coordinates of the sub-tile's first pixel
+  int w, h;     // its extent, clipped to the tile
+  __device__ Sub(int t, int sub, int tiles_x, int tile_h, int tile_w) {
+    const int nsx = (tile_w + kSubW - 1) / kSubW;
+    const int sy = sub / nsx, sx = sub - sy * nsx;
+    const int ty = t / tiles_x, tx = t - ty * tiles_x;
+    ox = tx * tile_w + sx * kSubW;
+    oy = ty * tile_h + sy * kSubH;
+    w = min(kSubW, tile_w - sx * kSubW);
+    h = min(kSubH, tile_h - sy * kSubH);
+  }
+  // whether a row misses every pixel centre of columns [x0, x1] of the
+  // sub-tile (clipped to it), all its rows high
+  __device__ bool rejects(const float4& r0, const float4& r1, const float4& r2,
+                          int x0, int x1, bool mxu) const {
+    const float xlo = (float)(ox + x0) + 0.5f;
+    const float xhi = (float)(ox + min(x1, w - 1)) + 0.5f;
+    const float ylo = (float)oy + 0.5f, yhi = (float)(oy + h - 1) + 0.5f;
+    // tr::edges_reject without its short circuit: the three planes are
+    // independent work for the pipeline, not three branches
+    const float m0 = tr::plane_max(r0.x, r0.y, r0.z, xlo, xhi, ylo, yhi, mxu);
+    const float m1 = tr::plane_max(r0.w, r1.x, r1.y, xlo, xhi, ylo, yhi, mxu);
+    const float m2 = tr::plane_max(r1.z, r1.w, r2.x, xlo, xhi, ylo, yhi, mxu);
+    return (m0 < 0.0f) | (m1 < 0.0f) | (m2 < 0.0f);
+  }
+};
+
+// Narrow the rows [lo, hi) of one pixel column (centre px; row 0's centre
+// ylo) to those where the plane a * px + b * py + c is >= 0. tr::plane
+// rises with py where b >= 0 and falls where b < 0, under the rounded
+// arithmetic too (see tr::plane_max), and a NaN, which only inf - inf
+// gives, stays a NaN for every py further on: so the rows where it is >= 0
+// are a suffix or a prefix of the column, and a binary search with the
+// plane's own value at the row centres finds them exactly.
+__device__ __forceinline__ void narrow_rows(float a, float b, float c, float px,
+                                            float ylo, bool mxu, int& lo,
+                                            int& hi) {
+  const bool rising = b >= 0.0f;
+  int first = lo, last = hi;
+  while (first < last) {
+    const int mid = (first + last) >> 1;
+    const bool in = tr::plane(a, b, c, px, ylo + (float)mid, mxu) >= 0.0f;
+    if (in == rising)
+      last = mid;
+    else
+      first = mid + 1;
+  }
+  if (rising)
+    lo = first;    // rows [first, hi) are in
+  else
+    hi = first;    // rows [lo, first) are in
+}
+
+// K4's work list (global memory, written by stream_parts_kernel): entry b
+// is the part of a window that block b races. A window of at most
+// kStreamSplit rows is one part; a longer one is cut into `count` parts of
+// kStreamSplit rows, neighbours in the list, that share a counter.
+struct __align__(16) Part {
+  int tile;    // < 0: no work (the list is as long as it could get)
+  int first;   // its first row in the stream
+  int rows;
+  int count;   // parts of its window
+  int index;   // which of them this is
+  int slot;    // the window's counter, when count > 1
+  int pad[2];
+};
+static_assert(sizeof(Part) == 32, "scratch layout");
+
+struct StreamShared {
+  Key keys[kSubPixels];
+  unsigned short queue[kRowsAtOnce * kCells];   // (row << 4 | cell) units
+  int qcount[2];
+  int last;
+};
+
+// Race rows[0, n) over the sub-tile into sh.keys. Row-parallel: four lanes
+// take a row, each a group of 32 columns and then its cells, with the exact
+// rejection; every (row, cell) pair left is a work unit in a queue, and
+// eight lanes take a unit, a lane a column of the cell: a binary search an
+// edge finds the column's covered rows, and a covered pixel's key goes into
+// shared memory with atomicMax. Every thread of the block must call it; it
+// returns after a sync.
+__device__ __forceinline__ void race_window(const float* __restrict__ rows,
+                                            int n, const Sub& s, bool mxu,
+                                            StreamShared& sh) {
+  for (int p = threadIdx.x; p < kSubPixels; p += kThreads) sh.keys[p] = 0;
+  if (threadIdx.x < 2) sh.qcount[threadIdx.x] = 0;
+  __syncthreads();
+  const float4* rows4 = reinterpret_cast<const float4*>(rows);
+  const int lane = threadIdx.x & 31;
+  for (int base = 0, it = 0; base < n; base += kRowsAtOnce, ++it) {
+    int* count = sh.qcount + (it & 1);
+    // four lanes a row, a lane a group of 32 columns and its four cells
+    const int i = base + (threadIdx.x >> 2), g = threadIdx.x & 3;
+    unsigned cells = 0;
+    if (i < n && g * 32 < s.w) {
+      const float4* p = rows4 + (size_t)i * 4;
+      const float4 r0 = __ldg(p), r1 = __ldg(p + 1), r2 = __ldg(p + 2);
+      if (__ldg(rows + (size_t)i * kCols + 12) > 0.0f &&
+          !s.rejects(r0, r1, r2, g * 32, g * 32 + 31, mxu))
+        for (int c = g * 4; c < g * 4 + 4 && c * kCell < s.w; ++c)
+          if (!s.rejects(r0, r1, r2, c * kCell, c * kCell + kCell - 1, mxu))
+            cells |= 1u << c;
+    }
+    // every (row, cell) left is a work unit; queue positions: a prefix sum
+    // over the warp, one atomicAdd a warp
+    const int mine = __popc(cells);
+    int incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += v;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    int wbase = 0;
+    if (lane == 31 && total) wbase = atomicAdd(count, total);
+    int pos = __shfl_sync(kFull, wbase, 31) + incl - mine;
+    while (cells) {
+      const int c = __ffs(cells) - 1;
+      cells &= cells - 1;
+      sh.queue[pos++] = (unsigned short)((threadIdx.x >> 2 << 4) | c);
+    }
+    __syncthreads();
+    const int units = *count;
+    if (threadIdx.x == 0) sh.qcount[(it + 1) & 1] = 0;
+    // eight lanes take a unit, a lane a column of the cell: the rows of the
+    // column that the three edges cover (none, for most columns), then the
+    // depth plane at those pixels and each one's key into shared memory.
+    // The race starts from depth 0: a negative or NaN depth never wins.
+    for (int u = threadIdx.x >> 3; u < units; u += kThreads / 8) {
+      const unsigned e = sh.queue[u];
+      const int x = (int)(e & 15u) * kCell + (threadIdx.x & 7);
+      if (x >= s.w) continue;
+      const size_t row = (size_t)base + (e >> 4);
+      const float4* p = rows4 + row * 4;
+      const float4 r0 = __ldg(p), r1 = __ldg(p + 1), r2 = __ldg(p + 2);
+      const float px = (float)(s.ox + x) + 0.5f, ylo = (float)s.oy + 0.5f;
+      int lo = 0, hi = s.h;
+      narrow_rows(r0.x, r0.y, r0.z, px, ylo, mxu, lo, hi);
+      narrow_rows(r0.w, r1.x, r1.y, px, ylo, mxu, lo, hi);
+      narrow_rows(r1.z, r1.w, r2.x, px, ylo, mxu, lo, hi);
+      if (lo >= hi) continue;
+      const float idf = __ldg(rows + row * kCols + 12);
+      for (int y = lo; y < hi; ++y) {
+        const float z = tr::plane(r2.y, r2.z, r2.w, px, ylo + (float)y, mxu);
+        if (z >= 0.0f) atomicMax(sh.keys + y * kSubW + x, make_key(z, idf));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Write the sub-tile's keys (shared memory; nullptr: background) out as
+// tri_id and depth. vec: 16-byte stores (tile_w and width multiples of 4).
+__device__ __forceinline__ void store_sub(const Key* keys, const Sub& s,
+                                          int* __restrict__ tri_id,
+                                          float* __restrict__ depth, int width,
+                                          bool vec) {
+  if (vec) {
+    const int p = threadIdx.x * 4;
+    const int y = p / kSubW, x = p % kSubW;
+    if (x >= s.w || y >= s.h) return;
+    Key k[4] = {0, 0, 0, 0};
+    if (keys != nullptr)
+      for (int j = 0; j < 4; ++j) k[j] = keys[p + j];
+    const size_t o = (size_t)(s.oy + y) * width + s.ox + x;
+    *reinterpret_cast<int4*>(tri_id + o) =
+        make_int4((int)(unsigned)k[0] - 1, (int)(unsigned)k[1] - 1,
+                  (int)(unsigned)k[2] - 1, (int)(unsigned)k[3] - 1);
+    *reinterpret_cast<float4*>(depth + o) = make_float4(
+        __uint_as_float((unsigned)(k[0] >> 32)),
+        __uint_as_float((unsigned)(k[1] >> 32)),
+        __uint_as_float((unsigned)(k[2] >> 32)),
+        __uint_as_float((unsigned)(k[3] >> 32)));
+    return;
+  }
+  for (int p = threadIdx.x; p < kSubPixels; p += kThreads) {
+    const int y = p / kSubW, x = p % kSubW;
+    if (x >= s.w || y >= s.h) continue;
+    const Key k = keys != nullptr ? keys[p] : 0;
+    const size_t o = (size_t)(s.oy + y) * width + s.ox + x;
+    tri_id[o] = (int)(unsigned)k - 1;
+    depth[o] = __uint_as_float((unsigned)(k >> 32));
+  }
+}
+
+// Scratch of K4 for a stream of Ls rows over n_tiles tiles: at most
+// max_slots = Ls / kStreamSplit windows are long (they are disjoint), so the
+// list has at most n_parts = n_tiles + max_slots parts. Nothing of it has
+// to be zero: a part of a long window writes its keys to its own buffer.
+struct StreamScratch {
+  unsigned* arrived;   // max_slots * subs counters of finished parts
+  Part* parts;         // n_parts
+  Key* keys;           // n_parts * subs buffers of kSubPixels
+  __host__ __device__ static size_t counters(int max_slots, int subs) {
+    return ((size_t)max_slots * subs + 7) / 8 * 8;
+  }
+  __host__ __device__ StreamScratch(void* base, int n_parts, int max_slots,
+                                    int subs) {
+    arrived = static_cast<unsigned*>(base);
+    parts = reinterpret_cast<Part*>(arrived + counters(max_slots, subs));
+    keys = reinterpret_cast<Key*>(parts + n_parts);
+  }
+  __host__ __device__ static size_t bytes(int n_parts, int max_slots,
+                                          int subs) {
+    return counters(max_slots, subs) * sizeof(unsigned) +
+           (size_t)n_parts * sizeof(Part) +
+           (size_t)n_parts * subs * kSubPixels * sizeof(Key);
+  }
+};
+
+// One block: cut every tile's walked window into parts (a prefix sum over
+// the tiles, 1024 at a time) and give each long window a zeroed counter.
+// Every tile gets at least one entry whatever the starts are, so every
+// pixel is written: the windows of monotone starts <= Ls are disjoint and
+// their parts fit the list; were they not, the window whose parts no longer
+// fit, and every long one after it, is raced whole by one block.
+__global__ void __launch_bounds__(1024)
+stream_parts_kernel(const int* __restrict__ starts, void* scratch, int n_tiles,
+                    int max_slots, int subs, int kb, int nb) {
+  __shared__ int warp_sum[32];
+  __shared__ int running, slots;
+  const int n_parts = n_tiles + max_slots;
+  const StreamScratch sc(scratch, n_parts, max_slots, subs);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) running = slots = 0;
+  __syncthreads();
+  for (int t0 = 0; t0 < n_tiles; t0 += 1024) {
+    const int t = t0 + threadIdx.x;
+    int start = 0, n = 0, want = 0;   // entries of the list the tile takes
+    if (t < n_tiles) {
+      start = starts[t];
+      n = max(tr::walk_stop(starts, t, kb, nb) - start, 0);
+      want = max(1, (n + kStreamSplit - 1) / kStreamSplit);
+    }
+    int incl = want;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int before = running;
+    for (int w = 0; w < warp; ++w) before += warp_sum[w];
+    if (t < n_tiles) {
+      // entries [at, at + room): the tile's own and its share of the
+      // max_slots further ones, room == want while those last
+      const int extra = before + incl - want - t;   // of the tiles before
+      const int at = t + min(extra, max_slots);
+      const int room = 1 + min(extra + want - 1, max_slots) - (at - t);
+      int slot = 0;
+      const bool cut = want > 1 && room == want;
+      if (cut) slot = atomicAdd(&slots, 1);   // < max_slots: each took a part
+      for (int sub = 0; cut && sub < subs; ++sub)
+        sc.arrived[slot * subs + sub] = 0;
+      for (int k = 0; k < room; ++k) {
+        if (cut)
+          sc.parts[at + k] = Part{t, start + k * kStreamSplit,
+                                  min(kStreamSplit, n - k * kStreamSplit),
+                                  want, k, slot};
+        else
+          sc.parts[at + k] = k == 0 ? Part{t, start, n, 1, 0, 0}
+                                    : Part{-1, 0, 0, 0, 0, 0};
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 1023) running = before + incl;
+    __syncthreads();
+  }
+  const int used = n_tiles + min(running - n_tiles, max_slots);
+  for (int b = used + threadIdx.x; b < n_parts; b += 1024)
+    sc.parts[b] = Part{-1, 0, 0, 0, 0, 0};
+}
+
+// kMxu: the plane order of large tiles (tr::plane's mxu_order), a template
+// parameter so that the planes of the race carry no select.
+template <bool kMxu>
+__global__ void __launch_bounds__(kThreads, kStreamMinBlocks)
+raster_stream_kernel(const float* __restrict__ rows, int* __restrict__ tri_id,
+                     float* __restrict__ depth, void* scratch, int max_slots,
+                     int tiles_x, int tile_h, int tile_w, int width, int vec) {
+  __shared__ StreamShared sh;
+  const int subs = gridDim.y, sub = blockIdx.y;
+  const StreamScratch sc(scratch, gridDim.x, max_slots, subs);
+  const Part part = sc.parts[blockIdx.x];
+  if (part.tile < 0) return;
+  const Sub s(part.tile, sub, tiles_x, tile_h, tile_w);
+  if (part.rows == 0) {
+    store_sub(nullptr, s, tri_id, depth, width, vec != 0);
+    return;
+  }
+  race_window(rows + (size_t)part.first * kCols, part.rows, s, kMxu, sh);
+  if (part.count > 1) {
+    // the parts of a long window each leave their keys in their own buffer;
+    // the last to finish takes every pixel's maximum over them (a key
+    // orders as the race does) and writes the pixels out
+    Key* mine = sc.keys + ((size_t)blockIdx.x * subs + sub) * kSubPixels;
+    for (int p = threadIdx.x; p < kSubPixels; p += kThreads)
+      mine[p] = sh.keys[p];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      sh.last = atomicAdd(sc.arrived + part.slot * subs + sub, 1u) ==
+                (unsigned)part.count - 1u;
+    __syncthreads();
+    if (!sh.last) return;
+    __threadfence();
+    const Key* first = mine - (ptrdiff_t)part.index * subs * kSubPixels;
+    Key best[kSubPixels / kThreads] = {0, 0, 0, 0};
+#pragma unroll 4
+    for (int k = 0; k < part.count; ++k)
+#pragma unroll
+      for (int j = 0; j < kSubPixels / kThreads; ++j)
+        best[j] = max(best[j], __ldcg(first + (size_t)k * subs * kSubPixels +
+                                      j * kThreads + threadIdx.x));
+#pragma unroll
+    for (int j = 0; j < kSubPixels / kThreads; ++j)
+      sh.keys[j * kThreads + threadIdx.x] = best[j];
+    __syncthreads();
+  }
+  store_sub(sh.keys, s, tri_id, depth, width, vec != 0);
 }
 
 // group > 0: the vector store, each warp composing `group` pixels of its
@@ -509,15 +893,38 @@ extern "C" int tr_raster(const void* counts, const void* rows, void* tri_id,
   return (int)cudaGetLastError();
 }
 
+static int stream_subs(int tile_h, int tile_w) {
+  return ((tile_w + kSubW - 1) / kSubW) * ((tile_h + kSubH - 1) / kSubH);
+}
+
+// Bytes of scratch tr_raster_stream needs for a stream of Ls rows over
+// n_tiles tiles (nothing of it has to be zeroed).
+extern "C" long long tr_raster_stream_scratch_bytes(int n_tiles, int tile_h,
+                                                    int tile_w, int Ls) {
+  const int max_slots = Ls / kStreamSplit;
+  return (long long)StreamScratch::bytes(n_tiles + max_slots, max_slots,
+                                         stream_subs(tile_h, tile_w));
+}
+
 extern "C" int tr_raster_stream(const void* starts, const void* rows,
-                                void* tri_id, void* depth, int n_tiles,
-                                int tiles_x, int tile_h, int tile_w, int kb,
-                                int nb, int width, int mxu_order,
-                                void* stream) {
-  raster_stream_kernel<<<raster_grid(n_tiles, tile_h, tile_w), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const int*)starts, (const float*)rows, (int*)tri_id, (float*)depth,
-      tiles_x, tile_h, tile_w, kb, nb, width, mxu_order);
+                                void* tri_id, void* depth, void* scratch,
+                                int n_tiles, int tiles_x, int tile_h,
+                                int tile_w, int kb, int nb, int Ls, int width,
+                                int mxu_order, void* stream) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int max_slots = Ls / kStreamSplit, subs = stream_subs(tile_h, tile_w);
+  cudaStream_t st = (cudaStream_t)stream;
+  stream_parts_kernel<<<1, 1024, 0, st>>>((const int*)starts, scratch, n_tiles,
+                                          max_slots, subs, kb, nb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int vec = tile_w % 4 == 0 && width % 4 == 0 &&
+                  ((uintptr_t)tri_id & 15) == 0 && ((uintptr_t)depth & 15) == 0;
+  auto kernel = mxu_order ? raster_stream_kernel<true>
+                          : raster_stream_kernel<false>;
+  kernel<<<dim3(n_tiles + max_slots, subs), kThreads, 0, st>>>(
+      (const float*)rows, (int*)tri_id, (float*)depth, scratch, max_slots,
+      tiles_x, tile_h, tile_w, width, vec);
   return (int)cudaGetLastError();
 }
 

@@ -46,10 +46,12 @@ SIGNATURES = {
     # counts, rows, tri_id, depth, scratch, n_tiles, tiles_x, tile_h,
     # tile_w, K, width, mxu_order, stream
     "tr_raster": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # starts, rows, tri_id, depth, n_tiles, tiles_x, tile_h, tile_w, kb,
-    # nb, width, mxu_order, stream
-    "tr_raster_stream": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+    # n_tiles, tile_h, tile_w, Ls -> bytes of scratch tr_raster_stream needs
+    "tr_raster_stream_scratch_bytes": (_I, _I, _I, _I),
+    # starts, rows, tri_id, depth, scratch, n_tiles, tiles_x, tile_h,
+    # tile_w, kb, nb, Ls, width, mxu_order, stream
+    "tr_raster_stream": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P),
     # counts, rows, table, tri_id, depth, sel, n_tiles, tiles_x, tile_h,
     # tile_w, K, width, T, D, mxu_order, stream
     "tr_raster_resolve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -68,7 +70,8 @@ SIGNATURES = {
     "tr_windowed_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
-RETURNS = {"tr_raster_scratch_bytes": ctypes.c_longlong}
+RETURNS = {"tr_raster_scratch_bytes": ctypes.c_longlong,
+           "tr_raster_stream_scratch_bytes": ctypes.c_longlong}
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of the last build + load

@@ -677,18 +677,13 @@ def walked_rows(sbins: StreamBins, n_tiles: int, kmax: int
     return walked, tile.clamp(max=n_tiles - 1)
 
 
-def rasterize_stream_ref(sbins: StreamBins, tiles_y: int, tiles_x: int,
-                         tile_h: int, tile_w: int, kmax: int
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K4 (any device): K1's race over each
-    tile's walked window, as one max of (depth, id) keys.
-
-    Every walked stream row is evaluated at its own tile's pixels; a
-    covered pixel's candidate is the int64 key ``bits(z) << 32 | id + 1``,
-    which orders as (z, id) for z >= 0, and ``scatter_reduce`` keeps each
-    pixel's largest key over the key 0 (the race's ``best_z = 0``,
-    background). Rows with z < 0 never win, as in the race; a winning depth
-    of -0.0 reads +0.0 here."""
+def _race_stream(sbins: StreamBins, tiles_y: int, tiles_x: int, tile_h: int,
+                 tile_w: int, kmax: int, keep=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keyed race of :func:`rasterize_stream_ref`; ``keep(rows (c, 16),
+    x (c, P) i64, y (c, P) i64) -> (c, P) bool``, when given, decides in
+    the edge tests' place which rows cover a pixel (x, y: the pixel's image
+    coordinates)."""
     Ls = sbins.rows.shape[0]
     n_tiles = tiles_y * tiles_x
     P = tile_h * tile_w
@@ -701,16 +696,21 @@ def rasterize_stream_ref(sbins: StreamBins, tiles_y: int, tiles_x: int,
     for c0 in range(0, Ls, chunk):
         s = sbins.rows[c0:c0 + chunk, :, None]                    # (c, 16, 1)
         t = tile[c0:c0 + chunk, None]                             # (c, 1)
-        px = ((t % tiles_x) * tile_w + p % tile_w).to(F32) + 0.5  # (c, P)
-        py = ((t // tiles_x) * tile_h + p // tile_w).to(F32) + 0.5
+        x = (t % tiles_x) * tile_w + p % tile_w                   # (c, P)
+        y = (t // tiles_x) * tile_h + p // tile_w
+        px, py = x.to(F32) + 0.5, y.to(F32) + 0.5
 
         def ev(lo):
             return plane(s[:, lo], s[:, lo + 1], s[:, lo + 2], px, py, mxu)
 
         z = ev(_ZX)
         idf = s[:, _IDF]
-        covered = ((ev(_E0X) >= 0.0) & (ev(_E1X) >= 0.0) & (ev(_E2X) >= 0.0)
-                   & (idf > 0.0) & (z >= 0.0) & walked[c0:c0 + chunk, None])
+        covered = (idf > 0.0) & (z >= 0.0) & walked[c0:c0 + chunk, None]
+        if keep is None:
+            covered = (covered & (ev(_E0X) >= 0.0) & (ev(_E1X) >= 0.0)
+                       & (ev(_E2X) >= 0.0))
+        else:
+            covered = covered & keep(s[:, :, 0], x, y)
         key = ((z + 0.0).view(I32).long() << 32) | idf.long()
         best.scatter_reduce_(0, (t * P + p).reshape(-1),
                              torch.where(covered, key, 0).reshape(-1), "amax")
@@ -718,6 +718,90 @@ def rasterize_stream_ref(sbins: StreamBins, tiles_y: int, tiles_x: int,
     depth = (best >> 32).to(I32).view(F32)
     return (_untile(tri_id.reshape(tiles_y, tiles_x, tile_h, tile_w)),
             _untile(depth.reshape(tiles_y, tiles_x, tile_h, tile_w)))
+
+
+def rasterize_stream_ref(sbins: StreamBins, tiles_y: int, tiles_x: int,
+                         tile_h: int, tile_w: int, kmax: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4 (any device): K1's race over each
+    tile's walked window, as one max of (depth, id) keys.
+
+    Every walked stream row is evaluated at its own tile's pixels; a
+    covered pixel's candidate is the int64 key ``bits(z) << 32 | id + 1``,
+    which orders as (z, id) for z >= 0, and ``scatter_reduce`` keeps each
+    pixel's largest key over the key 0 (the race's ``best_z = 0``,
+    background). Rows with z < 0 never win, as in the race; a winning depth
+    of -0.0 reads +0.0 here."""
+    return _race_stream(sbins, tiles_y, tiles_x, tile_h, tile_w, kmax)
+
+
+# K4's descent (csrc/raster.cu): a tile is cut into sub-tiles of 8 rows of
+# at most 128 pixels; a row is tested against the sub-tile's groups of 32
+# columns and cells of 8, and then, a pixel column at a time, a binary
+# search an edge finds the rows of the column that the row covers
+STREAM_SUB = (8, 128)
+STREAM_DESCENT = (32, 8)
+
+
+def column_rows(rows: torch.Tensor, x: torch.Tensor, y0: torch.Tensor,
+                h: torch.Tensor, mxu: bool
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's last step as tensor code: (lo, hi) such that ``[lo, hi)`` are
+    the rows of the pixel column ``x`` (image coordinates; ``y0`` its first
+    row, ``h`` <= 8 its height), where all three edge planes of
+    ``rows[..., :16]`` are >= 0 at the pixel centre. Everything broadcasts.
+
+    :func:`fp.plane` rises with ``py`` where ``b >= 0`` and falls where
+    ``b < 0``, under the rounded arithmetic too (see :func:`rect_rejects`),
+    and a NaN, which only inf - inf gives, stays one for every ``py``
+    further on; so the rows where an edge is >= 0 are a suffix or a prefix
+    of the column, and a binary search on the plane's own values finds
+    them."""
+    px = x.to(F32) + 0.5
+    lo, hi = torch.broadcast_tensors(torch.zeros_like(x), h, rows[..., 0])[:2]
+    for e in (_E0X, _E1X, _E2X):
+        a, b, c = rows[..., e], rows[..., e + 1], rows[..., e + 2]
+        rising = b >= 0.0
+        first, last = lo, hi
+        for _ in range(4):                   # 8 rows: at most 4 halvings
+            mid = (first + last) >> 1
+            inside = plane(a, b, c, px, (y0 + mid).to(F32) + 0.5, mxu) >= 0.0
+            open_ = first < last
+            left = open_ & (inside == rising)
+            right = open_ & (inside != rising)
+            first, last = (torch.where(right, mid + 1, first),
+                           torch.where(left, mid, last))
+        lo, hi = torch.where(rising, first, lo), torch.where(rising, hi, first)
+    return lo, hi
+
+
+def rasterize_stream_culled_ref(sbins: StreamBins, tiles_y: int,
+                                tiles_x: int, tile_h: int, tile_w: int,
+                                kmax: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rasterize_stream_ref` with K4's descent as plain tensor code:
+    a pixel races only the rows that :func:`rect_rejects` leaves at every
+    level of ``STREAM_DESCENT`` for the rectangle that holds the pixel
+    (each clipped to its sub-tile) and whose :func:`column_rows` hold the
+    pixel; the edges are not tested at the pixel itself. Bit-equal to the
+    exhaustive race. No frame calls it: it exists to test the descent."""
+    sub_h, sub_w = STREAM_SUB
+    mxu = tile_h * tile_w > _VPU_PLANES_MAX_P
+
+    def keep(rows, x, y):
+        lx, ly = x % tile_w, y % tile_h          # the pixel within its tile
+        sx, sy = lx // sub_w * sub_w, ly // sub_h * sub_h
+        h = (tile_h - sy).clamp(max=sub_h)
+        kept = torch.ones_like(x, dtype=torch.bool)
+        for w in STREAM_DESCENT:
+            rx = (lx - sx) // w * w + sx         # the rectangle's first column
+            wc = torch.minimum(torch.minimum(rx + w, sx + sub_w),
+                               torch.full_like(rx, tile_w)) - rx
+            kept &= ~rect_rejects(rows[:, None, :], x - lx + rx, y - ly + sy,
+                                  wc, h, mxu)
+        lo, hi = column_rows(rows[:, None, :], x, y - ly + sy, h, mxu)
+        return kept & (lo <= ly - sy) & (ly - sy < hi)
+
+    return _race_stream(sbins, tiles_y, tiles_x, tile_h, tile_w, kmax, keep)
 
 
 def rasterize_stream(sbins: StreamBins, tiles_y: int, tiles_x: int,
@@ -747,9 +831,15 @@ def rasterize_stream(sbins: StreamBins, tiles_y: int, tiles_x: int,
     H, W = tiles_y * tile_h, tiles_x * tile_w
     tri_id = torch.empty((H, W), dtype=I32, device=rows.device)
     depth = torch.empty((H, W), dtype=F32, device=rows.device)
-    code = kernels.library().tr_raster_stream(
+    lib = kernels.library()
+    # the kernel's list of window parts and the keys long windows meet in
+    nbytes = lib.tr_raster_stream_scratch_bytes(n_tiles, tile_h, tile_w, Ls)
+    scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64,
+                          device=rows.device)
+    code = lib.tr_raster_stream(
         starts.data_ptr(), rows.data_ptr(), tri_id.data_ptr(),
-        depth.data_ptr(), n_tiles, tiles_x, tile_h, tile_w, kb, nb, W,
+        depth.data_ptr(), scratch.data_ptr(), n_tiles, tiles_x, tile_h,
+        tile_w, kb, nb, Ls, W,
         int(tile_h * tile_w > _VPU_PLANES_MAX_P),
         kernels.stream_handle(rows.device))
     kernels.check("tr_raster_stream", code)

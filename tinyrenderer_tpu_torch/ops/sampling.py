@@ -170,6 +170,11 @@ def windowed_blend(texels: torch.Tensor, idx: torch.Tensor, fx: torch.Tensor,
     ops = [texels.contiguous(), idx.contiguous(), fx.contiguous(),
            fy.contiguous()]
     kernels.require_cuda("windowed_blend", *ops)
+    if ops[0].data_ptr() % 4:
+        raise ValueError("windowed_blend reads the pool's rows as 32-bit "
+                         "words: the texels must start on a 4-byte boundary "
+                         "(a view into a u8 buffer at an odd offset does "
+                         "not)")
     out = torch.empty((C, N) if channel_first else (N, C), dtype=F32,
                       device=texels.device)
     if N:

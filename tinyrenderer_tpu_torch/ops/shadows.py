@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import compact, raster
+from . import compact, post, raster
 
 F32 = torch.float32
 I32 = torch.int32
@@ -294,11 +294,15 @@ def gate_refined_visibility(vis_fn, vis_slot, pos: torch.Tensor, scale: int,
         return (vis_fn(pos) > 0.0).to(F32).movedim(-1, 0), zero
     lo = vis_fn(pos[::scale, ::scale]) > 0.0             # (hl, wl, L)
     hl, wl, L = lo.shape
-    if hl * scale != H or wl * scale != W:
-        raise NotImplementedError(
-            "shadow gates need the frame to be a multiple of "
-            f"shadow_lookup_scale={scale} (the resize fallback is not "
-            "ported)")
+    exact = hl * scale == H and wl * scale == W
+
+    def up(img):
+        """(hl, wl, ...) -> (H, W, ...), nearest: a repeat where ``scale``
+        divides the frame, else the reference's nearest resize."""
+        if exact:
+            return _nearest_up(img, scale, (0, 1))
+        return post.resize_nearest(img, H, W)
+
     # a cell is on an edge when its gate differs from any 8-neighbour
     padded = torch.nn.functional.pad(
         lo.movedim(-1, 0)[None].to(F32), (1, 1, 1, 1), mode="replicate"
@@ -308,7 +312,8 @@ def gate_refined_visibility(vis_fn, vis_slot, pos: torch.Tensor, scale: int,
         for dx in (0, 1, 2):
             if dy != 1 or dx != 1:
                 edge |= lo != padded[dy:dy + hl, dx:dx + wl]
-    coarse_up_cf = _nearest_up(lo.movedim(-1, 0).to(F32), scale, (1, 2))
+    coarse_up_cf = (_nearest_up(lo.movedim(-1, 0).to(F32), scale, (1, 2))
+                    if exact else up(lo.to(F32)).movedim(-1, 0))
 
     bh, bw = block_dims or _GATE_BLOCK_DIMS
     if H % bh or W % bw:
@@ -322,7 +327,7 @@ def gate_refined_visibility(vis_fn, vis_slot, pos: torch.Tensor, scale: int,
         cy, cx = bh // scale, bw // scale
         edge_blocks = edge.reshape(nby, cy, nbx, cx, L).any(dim=3).any(dim=1)
     else:
-        hi_edge = _nearest_up(edge, scale, (0, 1))
+        hi_edge = up(edge)
         edge_blocks = compact.to_blocks(hi_edge, bh, bw).any(dim=2).any(
             dim=1).reshape(nby, nbx, L)
     plan = compact.plan_blocks(

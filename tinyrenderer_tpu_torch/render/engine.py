@@ -136,6 +136,14 @@ class Engine:
 
     def _repack(self) -> None:
         self._atlas = None   # scene or lights changed: shadow maps are stale
+        # the packer's texture pool is sized when it is built: a config
+        # whose pool envelope changed at run time (a preset with another
+        # texture_size or mip_levels) needs a new packer, or the frame goes
+        # on sampling the old pyramid
+        p = self._packer.pool
+        if (p.size != self.cfg.texture_size or p.levels != self.cfg.mip_levels
+                or p.capacity != self.cfg.max_textures):
+            self._packer = ScenePacker(self.cfg, self.asset_search_paths)
         try:
             self._pack = self._packer.pack(self.world, self.device)
         except CapacityError as e:
@@ -148,7 +156,9 @@ class Engine:
             self._packer = ScenePacker(self.cfg, self.asset_search_paths)
             self._pack = self._packer.pack(self.world, self.device)
         # light counts set the shadow-view count; forward triangles and
-        # textured materials select frame paths
+        # textured materials select frame paths. The pack itself reads none
+        # of the four fields (only the max_* capacities and the pool), so
+        # it is not packed again under the new config
         c = self._pack.counts
         has_fwd = c["forward_triangles"] > 0
         any_tex = c["textured_materials"] > 0
