@@ -40,7 +40,20 @@ runs, each phase asserting or letting its exception propagate:
    captured main-view shape), (b) SSR at strength 0.5, (c)
    ``render_scale_pct=75``, (d) ``texture_scale=2``, (e) the goldens'
    settings (``use_pallas=False``, shadow lookups and sky at 1/4 rate, f32
-   atlas).
+   atlas);
+7. the environment chain, the sky options and the presets on the textured
+   world of phase 5 at 1920x1080: (a) an engine with an HDR skybox file
+   (written from the procedural sky) and an IBL cache path bakes the
+   64-texel irradiance map of its 1024-texel cube on the card (timed; held
+   against the same bake on the CPU), writes the cache, a second engine
+   loads it bit-equal, and the ``BAKE_IRRADIANCE`` and ``SAVE_IRRADIANCE``
+   actions run; (b) the block-compacted exact sky
+   (``sky_block_capacity=4096, sky_scale=8``) gives the ``sky_scale=1``
+   frame exactly, fused and unfused; (c) the cubic sky upsample and a sky
+   scale of 3, which does not divide the frame; (d) ``performance_preset()``,
+   ``fidelity_preset()`` and ``reference_parity()`` (the native-size
+   texture pool). Each frame of (b)-(d) is settled, timed over ten engine
+   frames and rendered through the kernels and through the plain versions.
 
 A kernel's time is its share of a run of launches: N back-to-back calls
 of its wrapper between one pair of CUDA events, divided by N, the median
@@ -87,6 +100,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -229,6 +243,7 @@ def _patched(module, name: str, fn):
 
 
 def main(argv: list[str]) -> int:
+    import numpy as np
     import torch
     unknown = [a for a in argv if a != "--profile"]
     if unknown:
@@ -240,10 +255,11 @@ def main(argv: list[str]) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from tinyrenderer_tpu_torch import kernels
+    from tinyrenderer_tpu_torch.assets import hdr as hdrlib
     from tinyrenderer_tpu_torch.ops import (compact, raster, resolve,
                                             sampling, shading)
     from tinyrenderer_tpu_torch.render import frame as framelib
-    from tinyrenderer_tpu_torch.render.engine import Engine
+    from tinyrenderer_tpu_torch.render.engine import Engine, RenderingAction
     from tinyrenderer_tpu_torch.config import RenderConfig
     from tinyrenderer_tpu_torch.scene import demo
     from tinyrenderer_tpu_torch.utils import verify
@@ -756,7 +772,6 @@ def main(argv: list[str]) -> int:
         eng5._atlas = None
         eng5.set_param(framelib.PARAM_SSR_STRENGTH,
                        0.5 if change.get("enable_ssr") else 0.0)
-        framelib.check_ported(eng5.cfg)
         settle(eng5, label)
         c6 = eng5.cfg
         fused = framelib.use_fused_shading(c6) and c6.render_scale_pct == 100
@@ -814,6 +829,132 @@ def main(argv: list[str]) -> int:
             moved = (still.hdr != out6.hdr).any(dim=-1).float().mean().item()
             print(f"6b: SSR changed {moved:.4f} of the pixels", flush=True)
             assert moved > 0.001
+
+    # ---- phase 7: the environment chain, the sky options, the presets ----
+    def textured_engine(cfg, **kw):
+        return Engine.from_world(
+            demo.build_demo_world(n_cubes=24, textured_every=2),
+            camera=demo.build_demo_camera(1920, 1080), cfg=cfg, device=dev,
+            **kw)
+
+    def timed_config(tag, label, engine, names=("K1", "K2", "K3", "K7")):
+        """Settle, ten timed engine frames, kernels vs plain: (last output,
+        steady ms, the timed frames' launches)."""
+        settle(engine, label)
+        out, frame_ms, per_frame, run, peak_mb = timed_frames(engine, names,
+                                                              label)
+        steady = statistics.median(frame_ms[1:])
+        pick = out.pick_id
+        assert out.sdr.shape == (1080, 1920, 3) and torch.isfinite(out.hdr).all()
+        assert (pick == 0).any() and len(torch.unique(pick)) > 20, label
+        print(f"7{tag} {label} 1920x1080: launches {names} per frame "
+              f"{per_frame}, frame ms {[round(t, 3) for t in frame_ms]}, "
+              f"median of the steady 9: {steady:.3f} ms, peak memory "
+              f"{peak_mb:.1f} MiB, sky blocks {int(out.sky_blocks)}",
+              flush=True)
+        c = engine.cfg
+        scene, lights = engine._pack.scene, engine._pack.lights
+        env = engine._ensure_env()
+        cam = torch.as_tensor(engine.camera.to_raw(), device=dev)
+        kernel_vs_plain(f"7{tag} {label}", lambda: framelib.render_frame(
+            scene, engine._packer.pool_for(c, dev), lights, cam,
+            engine.params, env, c))
+        return out, steady, run
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # (a) HDR skybox file + IBL cache at the default sizes (1024, 64)
+        sky_path = os.path.join(tmp, "sky.hdr")
+        ibl_path = os.path.join(tmp, "ibl.data")
+        with open(sky_path, "wb") as f:
+            f.write(hdrlib.encode_hdr(hdrlib.procedural_sky()))
+        cfg7 = RenderConfig()
+        eng7 = textured_engine(cfg7, skybox_path=sky_path,
+                               ibl_cache_path=ibl_path)
+        env7 = eng7._ensure_env()
+        s7 = cfg7.irradiance_size
+        irr7 = env7.irradiance
+        assert irr7.is_cuda and irr7.shape == (6, s7, s7, 3)
+        assert torch.isfinite(irr7).all() and irr7.min() > 0
+        cube7 = env7.env_cube
+        assert cube7.is_cuda and cube7.shape == (6, 1024, 1024, 3)
+        bake_ms = _median_ms(lambda: framelib.bake_irradiance(cube7, s7), 5)
+        on_card = framelib.bake_irradiance(cube7, s7)
+        assert torch.equal(on_card, irr7), "the bake is not deterministic"
+        t0 = time.perf_counter()
+        on_cpu = framelib.bake_irradiance(cube7.cpu(), s7)
+        cpu_s = time.perf_counter() - t0
+        bake_err = (on_card.cpu() - on_cpu).abs().max().item()
+        # both sum the same 3213 weighted samples a texel in the same
+        # chunks of 128, in another order: a float32 sum of 3213 terms may
+        # move by 3213 ulp (1.9e-4) between two orders
+        torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-4, atol=1e-6)
+        bake_rel = ((on_card.cpu() - on_cpu).abs() / on_cpu.abs()).max().item()
+        print(f"7a irradiance bake {s7}x{s7}x6 of the {cube7.shape[1]}-texel "
+              f"cube on the card: {bake_ms:.3f} ms (median of 5), CPU "
+              f"{cpu_s:.1f} s, max abs diff {bake_err:.3g}, max rel diff "
+              f"{bake_rel:.3g} (rtol 1e-4, atol 1e-6), irradiance "
+              f"{irr7.min().item():.4g}..{irr7.max().item():.4g}", flush=True)
+        raw = np.fromfile(ibl_path, np.float16)
+        assert raw.size == 6 * s7 * s7 * 4
+        cached = raw.reshape(6, s7, s7, 4)[..., :3].astype(np.float32)
+        assert np.array_equal(cached, irr7.cpu().numpy().astype(np.float16)
+                              .astype(np.float32))
+        eng7b = textured_engine(cfg7, skybox_path=sky_path,
+                                ibl_cache_path=ibl_path)
+        loaded = eng7b._ensure_env().irradiance
+        assert loaded.is_cuda and np.array_equal(loaded.cpu().numpy(), cached)
+        out7, _ = settle(eng7, "skybox world")
+        assert torch.isfinite(out7.hdr).all() and (out7.pick_id == 0).any()
+        os.remove(ibl_path)
+        eng7.add_action(RenderingAction.BAKE_IRRADIANCE)
+        eng7.add_action(RenderingAction.SAVE_IRRADIANCE)
+        eng7.run_frame(0.0)
+        assert not eng7._actions and os.path.exists(ibl_path)
+        assert torch.equal(eng7._env.irradiance, on_card)
+        assert np.array_equal(np.fromfile(ibl_path, np.float16), raw)
+        print(f"7a skybox engine: cache {os.path.getsize(ibl_path)} bytes "
+              f"written, loaded bit-equal by a second engine; the "
+              f"BAKE_IRRADIANCE and SAVE_IRRADIANCE actions ran", flush=True)
+        del eng7, eng7b, env7, on_cpu
+
+    # (b) the block-compacted exact sky against the full-rate sky
+    steady7 = {}
+    for fused in (True, False):
+        mode = "fused" if fused else "unfused"
+        base = dataclasses.replace(c5, fused_shading=fused)
+        eng_b = textured_engine(dataclasses.replace(base, sky_scale=1))
+        full, steady7[f"sky_scale 1 {mode}"], _ = timed_config(
+            "b", f"sky_scale 1, {mode}", eng_b)
+        eng_b = textured_engine(dataclasses.replace(
+            base, sky_scale=8, sky_block_capacity=4096))
+        blocks, steady7[f"block sky {mode}"], _ = timed_config(
+            "b", f"block sky (capacity 4096, sky_scale 8), {mode}", eng_b)
+        assert framelib.use_fused_shading(eng_b.cfg) == fused
+        assert int(blocks.sky_blocks) > 0
+        assert torch.equal(full.sdr, blocks.sdr), \
+            f"7b {mode}: the block sky differs from the full-rate sky"
+        print(f"7b {mode}: block sky frame equals the sky_scale 1 frame "
+              f"({int(blocks.sky_blocks)} background blocks)", flush=True)
+        del eng_b
+
+    # (c) the cubic sky upsample; a sky scale that does not divide the frame
+    for label, change in (("cubic sky upsample", dict(sky_upsample="cubic")),
+                          ("sky_scale 3", dict(sky_scale=3))):
+        eng_c = textured_engine(dataclasses.replace(c5, **change))
+        _, steady7[label], _ = timed_config("c", label, eng_c)
+        del eng_c
+
+    # (d) the presets; reference_parity samples the native-size pool
+    for preset in ("performance_preset", "fidelity_preset",
+                   "reference_parity"):
+        eng_d = textured_engine(getattr(c5, preset)())
+        _, steady7[preset], run = timed_config("d", preset, eng_d)
+        if preset == "reference_parity":
+            pool = eng_d._packer.pool_for(eng_d.cfg, dev)
+            assert isinstance(pool, sampling.NativeTexturePoolGPU)
+            assert run["K7"] >= 20, "the native windowed taps took no K7"
+        del eng_d
+    print("7 steady frame ms: " + json.dumps(steady7), flush=True)
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),

@@ -1,9 +1,9 @@
 """Port parity for the whole slice: scene packing, the engine path, the
 point + directional frame, the forward overlay (demo.lvl's light
 billboard), the textured demo world and the forward-only frame against the
-JAX package on the CPU (Pallas kernels in interpret mode), the texture
-capacity monitors, and the refusal of unported configurations. Each side
-builds its worlds and configurations from its own package."""
+JAX package on the CPU (Pallas kernels in interpret mode), and the
+texture capacity monitors. Each side builds its worlds and configurations
+from its own package."""
 
 import dataclasses
 import os
@@ -189,27 +189,6 @@ def test_forward_only_frame_matches_jax():
     _assert_frames_agree(t_out.pick_id.numpy(), t_out.depth.numpy(),
                          t_out.sdr.numpy(), j_out)
     assert int(t_out.shadow_blocks) == 0
-
-
-@pytest.mark.parametrize("change,item", [
-    (dict(sky_block_capacity=256, fused_shading=False), "item 14"),
-    (dict(sky_scale=3), "item 14"),
-    (dict(sky_scale=8, sky_upsample="cubic", use_pallas=False), "item 14"),
-    (dict(sky_block_capacity=256, has_forward=False, any_textured=False),
-     "item 14"),
-    (dict(sky_scale=3, fused_resolve=True, forward_only=True), "item 14"),
-    (dict(native_texture_pool=True), "item 14"),
-])
-def test_render_frame_refuses_unported_branches(change, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tframe.check_ported(dataclasses.replace(CFG, **change))
-
-
-def test_pool_for_refuses_native_pool():
-    te = TEngine(cfg=CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        te._packer.pool_for(dataclasses.replace(CFG, native_texture_pool=True),
-                            "cpu")
 
 
 def test_engine_grows_texture_capacities():

@@ -98,40 +98,41 @@ def dilate_mask(mask: torch.Tensor) -> torch.Tensor:
     return m | F.pad(m[:, :-1], (1, 0)) | F.pad(m[:, 1:], (0, 1))
 
 
-def _blocks_needed(need: torch.Tensor, bh: int, bw: int) -> torch.Tensor:
+def blocks_needed(need: torch.Tensor, bh: int, bw: int) -> torch.Tensor:
     """(N,) bool: the (bh, bw) blocks of ``need`` (H, W) with a set pixel."""
     return to_blocks(need, bh, bw).flatten(1).any(dim=1)
 
 
-def sample_pool_compacted(pool: sampling.TexturePoolGPU, rec: torch.Tensor,
-                          uv: torch.Tensor, level_f: torch.Tensor,
-                          need: torch.Tensor,
+def sample_pool_compacted(pool, rec: torch.Tensor, uv: torch.Tensor,
+                          level_f: torch.Tensor, need: torch.Tensor,
                           capacity: int, filter: str = "dithered",
-                          wrap: bool = True
+                          wrap: bool = True, duv: torch.Tensor | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mip-filtered material sample gathered only on the blocks where
     ``need`` (H, W) is set: every pixel of a selected block is sampled
     (equal to the dense sampler there), the others return 0. rec (H, W)
-    i32, uv (H, W, 2), level_f (H, W) -> ((H, W, C), () i32 blocks that
-    wanted work). ``capacity`` <= 0 or >= the block count samples densely
-    and still reports the count."""
+    i32, uv (H, W, 2), level_f (H, W), a native pool's ``duv`` (H, W, 4)
+    -> ((H, W, C), () i32 blocks that wanted work). ``capacity`` <= 0 or
+    >= the block count samples densely and still reports the count."""
     H, W = need.shape
     dims = block_dims(H, W)
     n_blocks = 0 if dims is None else (H // dims[0]) * (W // dims[1])
     if dims is None or capacity <= 0 or capacity >= n_blocks:
         out = sampling.sample_pool_mip(pool, rec, uv, level_f, wrap=wrap,
-                                       filter=filter)
+                                       filter=filter, duv=duv)
         needed = (torch.zeros((), dtype=I32, device=need.device)
                   if dims is None
-                  else _blocks_needed(need, *dims).sum(dtype=I32))
+                  else blocks_needed(need, *dims).sum(dtype=I32))
         return out, needed
     bh, bw = dims
-    plan = plan_blocks(_blocks_needed(need, bh, bw), capacity)
+    plan = plan_blocks(blocks_needed(need, bh, bw), capacity)
+
+    def work(x):
+        return None if x is None else gather_blocks(to_blocks(x, bh, bw), plan)
+
     # blocks are origin-aligned multiples of 4, so the sampler's Bayer
     # thresholds tile exactly as on the dense grid
-    out_c = sampling.sample_pool_mip(
-        pool, gather_blocks(to_blocks(rec, bh, bw), plan),
-        gather_blocks(to_blocks(uv, bh, bw), plan),
-        gather_blocks(to_blocks(level_f, bh, bw), plan), wrap=wrap,
-        filter=filter)
+    out_c = sampling.sample_pool_mip(pool, work(rec), work(uv),
+                                     work(level_f), wrap=wrap, filter=filter,
+                                     duv=work(duv))
     return from_blocks(scatter_blocks(out_c, plan), H, W), plan.needed

@@ -1,7 +1,8 @@
 """Post-processing (port of ops/post.py): tone mapping + gamma,
-screen-space reflections, the exact integer-factor bilinear upsample (the
-coarse sky, the strided material sample), and the resizes of the scaled
-frame and of the irradiance map."""
+screen-space reflections, the exact integer-factor bilinear and
+Catmull-Rom upsamples (the coarse sky, the strided material sample), the
+resizes of the scaled frame, of a sky the scale does not divide and of the
+irradiance map, and the 2x2 box mip reduction."""
 
 from __future__ import annotations
 
@@ -66,6 +67,73 @@ def upsample_bilinear_int(img: torch.Tensor, sy: int, sx: int
     factors (equal to ``jax.image.resize``'s bilinear for them)."""
     out = upsample_axis(img, sy, 0) if sy > 1 else img
     return upsample_axis(out, sx, 1) if sx > 1 else out
+
+
+def _shift_clamped(img: torch.Tensor, k: int, axis: int) -> torch.Tensor:
+    """``in[i + k]`` along ``axis``, the edge row repeated (clamp at the
+    edge), any ``|k| < n``."""
+    if k == 0:
+        return img
+    n = img.shape[axis]
+    if k > 0:
+        return torch.cat([img.narrow(axis, k, n - k)]
+                         + [img.narrow(axis, n - 1, 1)] * k, axis)
+    return torch.cat([img.narrow(axis, 0, 1)] * -k
+                     + [img.narrow(axis, 0, n + k)], axis)
+
+
+def _cr_weights(p: float) -> tuple[float, float, float, float]:
+    """Catmull-Rom (a = -0.5) weights of the taps at -1, 0, 1, 2 around
+    the base sample, at fraction ``p`` in [0, 1)."""
+    p2, p3 = p * p, p * p * p
+    return (-0.5 * p3 + p2 - 0.5 * p,
+            1.5 * p3 - 2.5 * p2 + 1.0,
+            -1.5 * p3 + 2.0 * p2 + 0.5 * p,
+            0.5 * p3 - 0.5 * p2)
+
+
+def _upsample_axis_cubic(img: torch.Tensor, s: int, axis: int
+                         ) -> torch.Tensor:
+    """Exact integer-factor Catmull-Rom upsample along one axis
+    (half-pixel centres, clamp at the edge): ``s`` phase-wise four-tap
+    weighted adds, interleaved."""
+    shifts = {k: _shift_clamped(img, k, axis) for k in (-2, -1, 0, 1, 2)}
+    phases = []
+    for k in range(s):
+        f = (k + 0.5) / s - 0.5
+        m = -1 if f < 0.0 else 0
+        w = _cr_weights(f - m)
+        phases.append(w[0] * shifts[m - 1] + w[1] * shifts[m]
+                      + w[2] * shifts[m + 1] + w[3] * shifts[m + 2])
+    out = torch.stack(phases, dim=axis + 1)
+    shape = list(img.shape)
+    shape[axis] *= s
+    return out.reshape(shape)
+
+
+def upsample_bicubic_int(img: torch.Tensor, sy: int, sx: int
+                         ) -> torch.Tensor:
+    """(H, W, *C) -> (H * sy, W * sx, *C) Catmull-Rom upsample, integer
+    factors (separable)."""
+    out = _upsample_axis_cubic(img, sy, 0) if sy > 1 else img
+    return _upsample_axis_cubic(out, sx, 1) if sx > 1 else out
+
+
+def upsample_bicubic_int_cf(img: torch.Tensor, sy: int, sx: int
+                            ) -> torch.Tensor:
+    """(C, H, W) -> (C, H * sy, W * sx) Catmull-Rom upsample, integer
+    factors."""
+    out = _upsample_axis_cubic(img, sy, 1) if sy > 1 else img
+    return _upsample_axis_cubic(out, sx, 2) if sx > 1 else out
+
+
+def box_mip(img: torch.Tensor) -> torch.Tensor:
+    """(..., h, w, C) -> (..., h / 2, w / 2, C): the 2x2 box mip
+    reduction, summed row by row as the reference's reduction."""
+    h, w = img.shape[-3], img.shape[-2]
+    q = img.reshape(img.shape[:-3] + (h // 2, 2, w // 2, 2, img.shape[-1]))
+    return (((q[..., 0, :, 0, :] + q[..., 0, :, 1, :]) + q[..., 1, :, 0, :])
+            + q[..., 1, :, 1, :]) / 4.0
 
 
 def resize_bilinear(img: torch.Tensor, height: int, width: int

@@ -401,7 +401,8 @@ def _forward_overlay_compact(tri_id: torch.Tensor, bins, table: torch.Tensor,
     rec_t = r.record.reshape(cap, tile_h, tile_w)[:, ::fs, ::fs]
     lvl = sampling.mip_level_from_uv(uv_t, pool.level_sizes[0])
     tex = sampling.sample_pool_mip(pool, rec_t, uv_t, lvl,
-                                   filter=texture_filter)    # (cap, h, w, C)
+                                   filter=texture_filter,
+                                   duv=sampling.pool_duv(pool, uv_t))
     if fs > 1:
         tex = post.upsample_axis(post.upsample_axis(tex, fs, 1), fs, 2)
     tex = tex.reshape(cap, P, -1)
@@ -509,13 +510,13 @@ def resolve_gbuffer_from_attrs(r: ResolvedAttrs, tri_id: torch.Tensor,
         level = sampling.mip_level_from_uv(uv_lo, pool.level_sizes[0])
         rec, needed = compact.sample_pool_compacted(
             pool, rec_lo, uv_lo, level, need_lo, tex_block_capacity,
-            filter=texture_filter)
+            filter=texture_filter, duv=sampling.pool_duv(pool, uv_lo))
         rec = post.upsample_bilinear_int(rec, s, s)
     else:
         level = sampling.mip_level_from_uv(r.uv, pool.level_sizes[0])
         rec, needed = compact.sample_pool_compacted(
             pool, r.record, r.uv, level, use_tex & valid, tex_block_capacity,
-            filter=texture_filter)
+            filter=texture_filter, duv=sampling.pool_duv(pool, r.uv))
     nt = rec[..., 4:7] * 2.0 - 1.0
     n_mapped = _safe_normalize(fma(nt[..., 2:3], r.normal, fma(
         nt[..., 0:1], r.tangent, nt[..., 1:2] * r.bitangent)))

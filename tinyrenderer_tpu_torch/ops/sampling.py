@@ -9,10 +9,12 @@ neighbours, so a bilinear tap is one row. The default pool is windowed
 u8 with 9 channels; its taps go through kernel K7 (``csrc/sampling.cu``):
 row gather, decode and bilinear blend in one pass.
 
-Cubemaps are (6, S, S, C) with the face order +X, -X, +Y, -Y, +Z, -Z.
+The native-size pool (:class:`NativeTexturePoolGPU`,
+``cfg.native_texture_pool``) keeps each material record at its own size and
+level count, addressed through two small tables; its windowed u8 taps go
+through K7 as well.
 
-The native-size pool (``cfg.native_texture_pool``) is not ported yet
-(ROADMAP.md queue 1 item 14): ``ScenePacker.pool_for`` refuses it.
+Cubemaps are (6, S, S, C) with the face order +X, -X, +Y, -Y, +Z, -Z.
 """
 
 from __future__ import annotations
@@ -70,16 +72,55 @@ def _morton2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def window_rows(img: np.ndarray, wrap: bool = True) -> np.ndarray:
-    """(..., s, s, C) -> (..., s, s, 4C): [self | +x | +y | +x+y]."""
+    """(..., s, s, C) -> (..., s, s, 4C) on the host: [self | +x | +y |
+    +x+y] (:func:`window_rows_device`)."""
+    return window_rows_device(torch.from_numpy(np.ascontiguousarray(img)),
+                              wrap).numpy()
+
+
+def window_rows_device(img: torch.Tensor, wrap: bool = True) -> torch.Tensor:
+    """(..., s, s, C) -> (..., s, s, 4C): each texel beside its +x, +y and
+    +x+y neighbours, wrapping or clamped at the edge."""
     if wrap:
-        right = np.roll(img, -1, axis=-2)
-        down = np.roll(img, -1, axis=-3)
-        diag = np.roll(down, -1, axis=-2)
+        right = torch.roll(img, -1, dims=-2)
+        down = torch.roll(img, -1, dims=-3)
+        diag = torch.roll(down, -1, dims=-2)
     else:
-        right = np.concatenate([img[..., :, 1:, :], img[..., :, -1:, :]], -2)
-        down = np.concatenate([img[..., 1:, :, :], img[..., -1:, :, :]], -3)
-        diag = np.concatenate([down[..., :, 1:, :], down[..., :, -1:, :]], -2)
-    return np.concatenate([img, right, down, diag], axis=-1)
+        right = torch.cat([img[..., :, 1:, :], img[..., :, -1:, :]], -2)
+        down = torch.cat([img[..., 1:, :, :], img[..., -1:, :, :]], -3)
+        diag = torch.cat([down[..., :, 1:, :], down[..., :, -1:, :]], -2)
+    return torch.cat([img, right, down, diag], dim=-1)
+
+
+def remip_pool_device(pool: TexturePoolGPU,
+                      wrap: bool = True) -> TexturePoolGPU:
+    """Every record's mip chain rebuilt from its level-0 texels on the
+    pool's device (2x2 box reductions, :func:`post.box_mip`), re-windowed
+    and re-quantized as packed: the runtime re-mip after level 0 changed
+    on the device. Same static layout; ``wrap`` must match the pack. Needs
+    a row-major pool whose levels halve."""
+    from . import post
+    sizes = pool.level_sizes
+    if pool.morton or any(sizes[i] != 2 * sizes[i + 1]
+                          for i in range(len(sizes) - 1)):
+        raise ValueError("remip_pool_device needs a row-major pool whose "
+                         "levels halve")
+    tpt, C, S0 = pool.texels_per_tex, pool.base_channels, sizes[0]
+    Cw = pool.texels.shape[-1]
+    n = pool.texels.shape[0] // tpt
+    off0 = pool.level_offsets[0]
+    lvl0 = pool.texels.reshape(n, tpt, Cw)[:, off0:off0 + S0 * S0]
+    mips = [pool._decode(lvl0.reshape(n, S0, S0, Cw)[..., :C])]
+    for _ in sizes[1:]:
+        mips.append(post.box_mip(mips[-1]))
+    if pool.windowed:
+        mips = [window_rows_device(m, wrap) for m in mips]
+    flat = torch.cat([m.reshape(n, s * s, Cw) for m, s in zip(mips, sizes)],
+                     dim=1).reshape(n * tpt, Cw)
+    if pool.u8:
+        flat = (flat * 255.0 + 0.5).clamp(0, 255).to(U8)
+    return TexturePoolGPU(flat, pool.level_offsets, sizes, tpt,
+                          pool.windowed, C, pool.u8, pool.morton)
 
 
 def pack_texture_pool(mips: list, windowed: bool = False, wrap: bool = True,
@@ -257,20 +298,25 @@ def _sample_bilinear_dynamic_level(pool: TexturePoolGPU, tex: torch.Tensor,
 
     def texel(xi, yi):
         i = base + pool._texel_index(_clip(yi, sizes), _clip(xi, sizes), sizes)
-        return pool.texels[i.long()].to(F32)
+        return pool.texels[i.long()]
 
+    out = _blend4(pool.u8, texel(x0i, y0i), texel(x1i, y0i),
+                  texel(x0i, y1i), texel(x1i, y1i), fx, fy)
+    return out.movedim(-1, 0) if channel_first else out
+
+
+def _blend4(u8: bool, t00, t10, t01, t11, fx, fy) -> torch.Tensor:
+    """Bilinear blend of four gathered texel rows (..., C) at fractions
+    (...) with the reference's rounding."""
     fx, fy = fx[..., None], fy[..., None]
-    t00, t10 = texel(x0i, y0i), texel(x1i, y0i)
-    t01, t11 = texel(x0i, y1i), texel(x1i, y1i)
-    if pool.u8:
+    if u8:
         # the reference's compiler moves the decode scale onto the weights:
         # q00 * ((1 - fx) / 255) + q10 * (fx / 255), then fused as fp.lerp
+        t00, t10, t01, t11 = (t.to(F32) for t in (t00, t10, t01, t11))
         w0, w1 = (1.0 - fx) * (1.0 / 255.0), fx * (1.0 / 255.0)
-        out = fma(fma(t00, w0, t10 * w1), 1.0 - fy,
-                  fma(t01, w0, t11 * w1) * fy)
-    else:
-        out = lerp(lerp(t00, t10, fx), lerp(t01, t11, fx), fy)
-    return out.movedim(-1, 0) if channel_first else out
+        return fma(fma(t00, w0, t10 * w1), 1.0 - fy,
+                   fma(t01, w0, t11 * w1) * fy)
+    return lerp(lerp(t00, t10, fx), lerp(t01, t11, fx), fy)
 
 
 _BAYER4 = np.array([[0, 8, 2, 10], [12, 4, 14, 6],
@@ -314,16 +360,21 @@ def _sample_stochastic_dynamic_level(pool: TexturePoolGPU, tex: torch.Tensor,
     return row[..., :pool.base_channels] if pool.windowed else row
 
 
-def sample_pool_mip(pool: TexturePoolGPU, tex: torch.Tensor, uv: torch.Tensor,
+def sample_pool_mip(pool, tex: torch.Tensor, uv: torch.Tensor,
                     level_f: torch.Tensor, wrap: bool = True,
-                    filter: str = "dithered",
+                    filter: str = "dithered", duv: torch.Tensor | None = None,
                     channel_first: bool = False) -> torch.Tensor:
     """Mip-filtered sample at a per-pixel fractional level.
 
     'trilinear' blends bilinear taps at the two levels; 'dithered' takes
     one bilinear tap at lo or lo + 1 by a 4x4 Bayer threshold on the level
     fraction; 'bilinear' the nearest level; 'stochastic' the dithered
-    level and a one-texel stochastic footprint."""
+    level and a one-texel stochastic footprint. A native pool takes
+    :func:`sample_native_pool_mip` (``duv``: its uv derivatives)."""
+    if isinstance(pool, NativeTexturePoolGPU):
+        out = sample_native_pool_mip(pool, tex, uv, level_f, wrap=wrap,
+                                     filter=filter, duv=duv)
+        return out.movedim(-1, 0) if channel_first else out
     nlev = len(pool.level_sizes)
     lf = level_f.clamp(0.0, nlev - 1.0)
     lo = torch.floor(lf).to(I32)
@@ -364,7 +415,19 @@ def uv_derivatives(uv: torch.Tensor) -> torch.Tensor:
     return torch.cat([du, dv], dim=-1)
 
 
+def pool_duv(pool, uv: torch.Tensor) -> torch.Tensor | None:
+    """The uv derivatives a native pool's per-record level needs; None for
+    the pyramid pool, whose scalar level suffices."""
+    return (uv_derivatives(uv) if isinstance(pool, NativeTexturePoolGPU)
+            else None)
+
+
 _LN2 = float(np.float32(math.log(2.0)))
+
+
+def _log2(x: torch.Tensor) -> torch.Tensor:
+    """The reference CPU build's ``log2``: ``log(x) / log(2)``."""
+    return torch.log(x) / _LN2
 
 
 def mip_level_from_uv(uv: torch.Tensor, base_size: int) -> torch.Tensor:
@@ -381,7 +444,154 @@ def mip_level_from_uv(uv: torch.Tensor, base_size: int) -> torch.Tensor:
     rho = torch.maximum(fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]),
                         fma(d[..., 3], d[..., 3], d[..., 2] * d[..., 2]))
     texel_d2 = rho * float(base_size * base_size)
-    return (0.5 * (torch.log(texel_d2.clamp(min=1e-12)) / _LN2)).clamp(min=0.0)
+    return (0.5 * _log2(texel_d2.clamp(min=1e-12))).clamp(min=0.0)
+
+
+# ---- the native-size pool ---------------------------------------------------
+
+@dataclass
+class NativeTexturePoolGPU:
+    """Per-record native-size mip chains, flattened on a device: each record
+    keeps its own dimensions and level count. ``base_tab`` (R, 4) i32 holds
+    (w0, h0, levels, 0) a record; ``level_tab`` (R * max_levels, 4) i32
+    (row offset, w, h, 0) a (record, level), a record's last level repeated
+    up to ``max_levels``."""
+
+    texels: torch.Tensor          # (N, C | 4C) u8 or f32
+    base_tab: torch.Tensor
+    level_tab: torch.Tensor
+    max_levels: int
+    base_size: int                # largest base dimension
+    windowed: bool = False
+    base_channels: int = 9
+    u8: bool = True
+
+    @property
+    def level_sizes(self) -> tuple:
+        """For :func:`mip_level_from_uv`: level 0 at the largest base (the
+        sampler rebiases per record)."""
+        return (self.base_size,) * self.max_levels
+
+    def _decode(self, rows: torch.Tensor) -> torch.Tensor:
+        return rows.to(F32) * (1.0 / 255.0) if self.u8 else rows
+
+
+def pack_native_pool(chains: list, windowed: bool = False, wrap: bool = True,
+                     u8: bool = True, device="cpu") -> NativeTexturePoolGPU:
+    """chains: [record -> [(h, w, C) f32 per level]] at native sizes."""
+    Lmax = max((len(c) for c in chains), default=1)
+    base_size = max((max(c[0].shape[:2]) for c in chains), default=1)
+    C = chains[0][0].shape[-1] if chains else 9
+    parts, base_rows, level_rows = [], [], []
+    off = 0
+    for c in chains:
+        h0, w0 = c[0].shape[:2]
+        base_rows.append([w0, h0, len(c), 0])
+        for m in c:
+            h, w = m.shape[:2]
+            rows = window_rows(m, wrap) if windowed else m
+            parts.append(rows.reshape(h * w, -1))
+            level_rows.append([off, w, h, 0])
+            off += h * w
+        level_rows += [level_rows[-1]] * (Lmax - len(c))
+    flat = (np.concatenate(parts, axis=0) if parts
+            else np.zeros((1, C * (4 if windowed else 1)), np.float32))
+    if u8:
+        flat = np.clip(flat * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+    def tab(rows):
+        return torch.as_tensor(np.array(rows, np.int32).reshape(-1, 4),
+                               device=device)
+
+    return NativeTexturePoolGPU(torch.as_tensor(flat, device=device),
+                                tab(base_rows), tab(level_rows), Lmax,
+                                base_size, windowed, C, u8)
+
+
+def _sample_native_level(pool: NativeTexturePoolGPU, rec: torch.Tensor,
+                         uv: torch.Tensor, level_i: torch.Tensor, wrap: bool,
+                         stochastic: bool = False) -> torch.Tensor:
+    """One bilinear (or stochastic one-texel) tap of a native pool at a
+    per-pixel int32 level -> (..., C). A windowed u8 pool's tap is K7."""
+    tab = pool.level_tab[(rec * pool.max_levels + level_i).long()]
+    off, w, h = tab[..., 0], tab[..., 1], tab[..., 2]
+    wf, hf = w.to(F32), h.to(F32)
+    u = fma(uv[..., 0], wf, _HALF)
+    v = fma(uv[..., 1], hf, _HALF)
+    if wrap:
+        u = torch.remainder(u, wf)
+        v = torch.remainder(v, hf)
+    x0, y0 = torch.floor(u), torch.floor(v)
+    fx, fy = u - x0, v - y0
+    x0i, y0i = x0.to(I32), y0.to(I32)
+    C = pool.base_channels
+
+    def addr(xi, yi):
+        xi = torch.remainder(xi, w) if wrap else _clip(xi, w)
+        yi = torch.remainder(yi, h) if wrap else _clip(yi, h)
+        return off + yi * w + xi
+
+    if stochastic:
+        tu = _bayer_threshold(u.shape[-2:], u.device, phase=1)
+        tv = _bayer_threshold(v.shape[-2:], v.device, phase=2)
+        i = addr(x0i + (fx > tu).to(I32), y0i + (fy > tv).to(I32))
+        return pool._decode(pool.texels[i.long()])[..., :C]
+    if pool.windowed:
+        idx = addr(x0i, y0i)
+        if pool.u8:
+            out = windowed_blend(pool.texels, idx.reshape(-1),
+                                 fx.reshape(-1), fy.reshape(-1), C)
+            return out.reshape(tuple(idx.shape) + (C,))
+        row = pool.texels[idx.long()]
+        return _blend4(False, row[..., 0:C], row[..., C:2 * C],
+                       row[..., 2 * C:3 * C], row[..., 3 * C:4 * C], fx, fy)
+
+    def texel(xi, yi):
+        return pool.texels[addr(xi, yi).long()]
+
+    return _blend4(pool.u8, texel(x0i, y0i), texel(x0i + 1, y0i),
+                   texel(x0i, y0i + 1), texel(x0i + 1, y0i + 1), fx, fy)
+
+
+def sample_native_pool_mip(pool: NativeTexturePoolGPU, rec: torch.Tensor,
+                           uv: torch.Tensor, level_f: torch.Tensor,
+                           wrap: bool = True, filter: str = "trilinear",
+                           duv: torch.Tensor | None = None) -> torch.Tensor:
+    """Mip-filtered native-pool sample -> (..., C), the filters of
+    :func:`sample_pool_mip`. With ``duv`` (:func:`uv_derivatives`) the
+    level is exact per record: ``0.5 * log2(max over the screen axes of
+    (du * w0)^2 + (dv * h0)^2)``; without, ``level_f`` (against
+    ``base_size``) is rebiased by ``log2(w0 / base_size)``, exact for
+    square textures only."""
+    base = pool.base_tab[rec.long()]
+    w0, h0 = base[..., 0].to(F32), base[..., 1].to(F32)
+    top = base[..., 2].to(F32) - 1.0
+    if duv is not None:
+        ax, ay = duv[..., 0] * w0, duv[..., 1] * h0
+        bx, by = duv[..., 2] * w0, duv[..., 3] * h0
+        texel_d2 = torch.maximum(fma(ay, ay, ax * ax), fma(by, by, bx * bx))
+        lf = (0.5 * _log2(texel_d2.clamp(min=1e-12))).clamp(min=0.0)
+    else:
+        base_size = torch.tensor(float(pool.base_size), device=w0.device)
+        lf = level_f + (_log2(w0.clamp(min=1.0)) - _log2(base_size))
+    lf = torch.minimum(lf.clamp(min=0.0), top)
+    lo = torch.floor(lf).to(I32)
+    top_i = top.to(I32)
+    if filter == "trilinear":
+        frac = (lf - lo.to(F32))[..., None]
+        return lerp(_sample_native_level(pool, rec, uv, lo, wrap),
+                    _sample_native_level(pool, rec, uv,
+                                         torch.minimum(lo + 1, top_i), wrap),
+                    frac)
+    if filter == "bilinear":
+        level = torch.round(lf).to(I32)
+    elif filter in ("dithered", "stochastic"):
+        thresh = _bayer_threshold(lf.shape[-2:], lf.device)
+        level = torch.minimum(lo + ((lf - lo.to(F32)) > thresh).to(I32), top_i)
+    else:
+        raise ValueError(f"unknown texture filter {filter!r}")
+    return _sample_native_level(pool, rec, uv, level, wrap,
+                                stochastic=filter == "stochastic")
 
 
 # ---- cubemaps ---------------------------------------------------------------

@@ -7,6 +7,8 @@ the same view-projections as the bake. The deferred shading gates each
 light on ``shadow > 0``, so a light's visibility is one bit per pixel:
 ``gate_refined_visibility`` evaluates it on a coarse strided grid and
 re-evaluates exactly only the screen blocks along a shadow edge.
+``directional_shadow``, ``point_shadow`` and ``point_shadow_multi`` are
+the per-light PCF lookups that ``shadow_multi`` batches.
 """
 
 from __future__ import annotations
@@ -144,6 +146,40 @@ def _point_taps(world_pos, light_positions, S: int):
     li = torch.arange(Pn, dtype=I32, device=world_pos.device).reshape(
         (Pn,) + (1,) * (world_pos.ndim - 1))
     return u, v, z, ((li * 6 + face) * (S * S)).long(), m > 0.0
+
+
+def directional_shadow(world_pos: torch.Tensor, viewproj: torch.Tensor,
+                       shadow_map: torch.Tensor, bias=0.0) -> torch.Tensor:
+    """One directional light's PCF visibility against its windowed map
+    (S, S, 4): :func:`shadow_multi` of that light alone."""
+    return shadow_multi(world_pos, None, viewproj[None], shadow_map, bias)[0]
+
+
+def point_shadow_multi(world_pos: torch.Tensor, light_positions: torch.Tensor,
+                       atlas: torch.Tensor, bias=0.0) -> torch.Tensor:
+    """All P point lights' cube lookups, (P, ...), against the first 6P
+    views (P * 6, S, S, 4) of the windowed atlas: :func:`shadow_multi`
+    without directional lights."""
+    return shadow_multi(world_pos, light_positions, None, atlas, bias)
+
+
+def point_shadow(world_pos: torch.Tensor, light_pos: torch.Tensor,
+                 face_viewprojs: torch.Tensor, face_maps: torch.Tensor,
+                 bias=0.0) -> torch.Tensor:
+    """One point light's cube lookup through its faces' own view-projections
+    (6, 4, 4): the face of the dominant axis of (point - light), its
+    projection, one PCF against the windowed faces (6, S, S, 4)."""
+    face = _cube_face(world_pos - light_pos)
+    S = face_maps.shape[-2]
+    u, v, z, w = _project(world_pos, face_viewprojs[0])
+    for f in range(1, 6):
+        m = face == f
+        uf, vf, zf, wf = _project(world_pos, face_viewprojs[f])
+        u, v, z, w = (torch.where(m, a, b) for a, b in
+                      ((uf, u), (vf, v), (zf, z), (wf, w)))
+    vis = _compare_pcf(face_maps, u, v, z, base=face.long() * (S * S),
+                       bias=bias)
+    return torch.where(w > 0.0, vis, torch.ones_like(vis))
 
 
 def _multi_taps(world_pos, light_positions, dir_viewprojs, S: int):

@@ -2,10 +2,17 @@
 environment around :func:`frame.render_frame`.
 
 ``run_frame`` = ``update`` (repack when the world changed) -> ``render``
-(one frame; the shadow atlas is cached until the next repack) ->
-``on_end_frame``. After each frame the capacity monitors are read back
-with one synchronous ``.tolist()`` and an overflowed capacity grows for
-the next frame (a long run under 40% occupancy shrinks it again).
+(the queued rendering actions, the environment, one frame; the shadow
+atlas is cached until the next repack) -> ``on_end_frame``. After each
+frame the capacity monitors are read back with one synchronous
+``.tolist()`` and an overflowed capacity grows for the next frame (a long
+run under 40% occupancy shrinks it again).
+
+The environment is the procedural sky or an HDR skybox file
+(``skybox_path``) baked to a cube, and its diffuse irradiance map: a raw
+float16 cache file (``ibl_cache_path``) when one of the right size exists,
+else the embedded map for the procedural sky, else the bake (written to
+the cache path when one is given).
 
 Left out on purpose (ROADMAP.md decisions): the XLA compile cache, the
 asynchronous monitor fetch thread and the synchronous settle loop — they
@@ -26,9 +33,7 @@ import torch
 
 from .. import config
 from ..assets import hdr as hdrlib
-from ..ops import compact
-from ..ops import env as envops
-from ..ops import post, sampling
+from ..ops import compact, post, sampling
 from ..scene import level_io
 from ..scene.camera import Camera
 from ..scene.world import World
@@ -40,6 +45,14 @@ log = logging.getLogger(__name__)
 # the embedded irradiance map baked from the default procedural sky
 DEFAULT_IBL = os.path.join(os.path.dirname(hdrlib.__file__),
                            "default_ibl.npz")
+
+
+class RenderingAction:
+    """The deferred environment actions an engine drains before a frame."""
+
+    GENERATE_CUBEMAP = "GenerateCubeMapFromEquirectangular"
+    BAKE_IRRADIANCE = "BakeDiffuseIrradianceMap"
+    SAVE_IRRADIANCE = "SaveDiffuseIrradianceMapToFile"
 
 
 class Engine:
@@ -54,14 +67,17 @@ class Engine:
         "fwdtex": ("fwd_tile_capacity", "Forward overlay tile overflow"),
         "shadowblk": ("shadow_block_capacity",
                       "Shadow boundary-block overflow"),
+        "skyblk": ("sky_block_capacity", "Sky background-block overflow"),
         "stream": ("stream_capacity", "Raster stream overflow"),
     }
     # block-compaction work lists: grown and shrunk in 256-block steps
-    _BLOCK_KINDS = ("tex", "fwdtex", "shadowblk")
+    _BLOCK_KINDS = ("tex", "fwdtex", "shadowblk", "skyblk")
 
     def __init__(self, cfg: Optional[config.RenderConfig] = None, *,
                  device, level_path: Optional[str] = None,
-                 asset_search_paths: tuple[str, ...] = (".",)):
+                 asset_search_paths: tuple[str, ...] = (".",),
+                 skybox_path: Optional[str] = None,
+                 ibl_cache_path: Optional[str] = None):
         self.device = torch.device(device)
         self.cfg = cfg or config.RenderConfig()
         self.asset_search_paths = asset_search_paths
@@ -71,7 +87,12 @@ class Engine:
         self._packer = ScenePacker(self.cfg, asset_search_paths)
         self._pack: Optional[PackResult] = None
         self._needs_pack = True
+        self._actions: list[str] = []
         self._env: Optional[framelib.EnvGPU] = None
+        self._equirect: Optional[torch.Tensor] = None
+        self._equirect_is_file = False
+        self._skybox_path = skybox_path
+        self._ibl_cache_path = ibl_cache_path
         self._atlas: Optional[torch.Tensor] = None
         self._shadow_big_need = 0
         self._under_count: dict = {}
@@ -80,6 +101,7 @@ class Engine:
         self.last_frame_ms = 0.0
         if level_path is not None:
             self.load_level(level_path)
+        self.add_action(RenderingAction.GENERATE_CUBEMAP)
 
     @classmethod
     def from_world(cls, world: World, camera: Optional[Camera] = None,
@@ -100,27 +122,103 @@ class Engine:
         self.camera.resize(self.cfg.width, self.cfg.height)
         self._needs_pack = True
 
+    def save_level(self, path: str) -> None:
+        level_io.save_level(path, self.world, self.camera)
+
     # -- environment --------------------------------------------------------
 
+    def _get_equirect(self) -> torch.Tensor:
+        """The skybox HDR file when ``skybox_path`` names one, else the
+        procedural sky, on the engine's device."""
+        if self._equirect is None:
+            p = self._skybox_path
+            self._equirect_is_file = bool(p) and os.path.exists(p)
+            eq = (hdrlib.load_hdr(p) if self._equirect_is_file
+                  else hdrlib.procedural_sky())
+            self._equirect = torch.as_tensor(eq, device=self.device)
+        return self._equirect
+
     def _ensure_env(self) -> framelib.EnvGPU:
-        """Procedural sky -> env cube, the embedded irradiance map (resized
-        to ``irradiance_size`` as the reference resizes it: the map is
-        smooth) and its SH-9 projection, and the windowed-RGBE display
-        cube."""
+        """The env cube (a file is gamma-decoded, the procedural sky is
+        linear), its irradiance map and SH-9 projection, and the
+        windowed-RGBE display cube."""
         if self._env is None:
-            eq = torch.as_tensor(hdrlib.procedural_sky(), device=self.device)
-            cube = envops.equirect_to_cubemap(eq, self.cfg.env_size,
-                                              gamma_decode=False)
-            irr = np.load(DEFAULT_IBL)["irradiance"].astype(np.float32)
-            irr_t = torch.as_tensor(irr, device=self.device)
-            s = self.cfg.irradiance_size
-            if irr.shape[1] != s:
-                irr_t = post.resize_linear(irr_t, (6, s, s, 3))
+            eq = self._get_equirect()
+            cube = framelib.bake_env_cubemap(
+                eq, self.cfg.env_size, gamma_decode=self._equirect_is_file)
+            irr = self._load_or_bake_irradiance(cube)
             self._env = framelib.EnvGPU(
-                env_cube=cube, irradiance=irr_t,
-                irradiance_sh=envops.sh_project_cubemap(irr_t),
+                env_cube=cube, irradiance=irr,
+                irradiance_sh=framelib.project_irradiance_sh(irr),
                 sky_rgbe=sampling.encode_rgbe_windowed(cube))
         return self._env
+
+    def _load_or_bake_irradiance(self, cube: torch.Tensor) -> torch.Tensor:
+        """(6, s, s, 3) irradiance: the raw float16 RGBA cache of 6 s s 4
+        values, else (no skybox) the embedded map, resized as the
+        reference resizes it (the map is smooth), else the bake of
+        ``cube``, then written to the cache path when one is given."""
+        s = self.cfg.irradiance_size
+        p = self._ibl_cache_path
+        if p and os.path.exists(p):
+            raw = np.fromfile(p, np.float16)
+            if raw.size == 6 * s * s * 4:
+                irr = raw.reshape(6, s, s, 4)[..., :3].astype(np.float32)
+                return torch.as_tensor(irr, device=self.device)
+            log.warning("IBL cache %s has the wrong size; rebaking", p)
+        if self._skybox_path is None:
+            irr = torch.as_tensor(
+                np.load(DEFAULT_IBL)["irradiance"].astype(np.float32),
+                device=self.device)
+            if irr.shape[1] != s:
+                irr = post.resize_linear(irr, (6, s, s, 3))
+            return irr
+        t0 = time.perf_counter()
+        irr = framelib.bake_irradiance(cube, s)
+        log.info("irradiance bake: %.3f s", time.perf_counter() - t0)
+        if p:
+            self.write_ibl_to_file(p, irr)
+        return irr
+
+    def write_ibl_to_file(self, path: str,
+                          irr: Optional[torch.Tensor] = None) -> None:
+        """The irradiance map (the current one by default) as raw float16
+        RGBA, face-major, alpha 1."""
+        if irr is None:
+            if self._env is None:
+                return
+            irr = self._env.irradiance
+        a = irr.cpu().numpy()
+        rgba = np.concatenate([a, np.ones((*a.shape[:-1], 1), np.float32)],
+                              axis=-1)
+        rgba.astype(np.float16).tofile(path)
+
+    def set_skybox(self, path: Optional[str]) -> None:
+        """Swap the environment HDR; the environment is baked again."""
+        self._skybox_path = path
+        self._equirect = None
+        self._env = None
+
+    # -- actions ------------------------------------------------------------
+
+    def add_action(self, action: str) -> None:
+        self._actions.append(action)
+
+    def _drain_actions(self) -> None:
+        for action in self._actions:
+            if action == RenderingAction.GENERATE_CUBEMAP:
+                self._env = None          # baked again on use
+            elif action == RenderingAction.BAKE_IRRADIANCE:
+                if self._env is not None:
+                    irr = framelib.bake_irradiance(self._env.env_cube,
+                                                   self.cfg.irradiance_size)
+                    self._env = replace(
+                        self._env, irradiance=irr,
+                        irradiance_sh=framelib.project_irradiance_sh(irr))
+            elif action == RenderingAction.SAVE_IRRADIANCE:
+                self.write_ibl_to_file(self._ibl_cache_path
+                                       or "output_ibl.data")
+        self._actions.clear()
 
     # -- params and frame lifecycle -----------------------------------------
 
@@ -173,13 +271,14 @@ class Engine:
         self._needs_pack = False
 
     def render(self) -> framelib.FrameOutput:
-        """One frame, then one synchronous read of the capacity monitors."""
+        """The queued actions, one frame, then one synchronous read of the
+        capacity monitors."""
         if self._pack is None or self._needs_pack:
             self._repack()
+        self._drain_actions()
         env = self._ensure_env()
         cam_raw = torch.as_tensor(self.camera.to_raw(), device=self.device)
         t0 = time.perf_counter()
-        framelib.check_ported(self.cfg)
         kinds, values = [], []
         if (self._atlas is None and self.cfg.enable_shadows
                 and self.cfg.num_shadow_views > 0):
@@ -193,9 +292,9 @@ class Engine:
             self._pack.lights, cam_raw, self.params, env, self.cfg,
             self._atlas)
         kinds.append(("bins", "binsbig", "tex", "fwdtex", "shadowblk",
-                      "stream"))
+                      "skyblk", "stream"))
         values += [out.bin_overflow, out.big_overflow, out.tex_overflow[0],
-                   out.tex_overflow[1], out.shadow_blocks,
+                   out.tex_overflow[1], out.shadow_blocks, out.sky_blocks,
                    out.stream_overflow]
         vals = torch.stack([v.to(torch.int32) for v in values]).tolist()
         self.last_frame_ms = (time.perf_counter() - t0) * 1e3
@@ -284,6 +383,12 @@ class Engine:
         out = self.render()
         self.on_end_frame()
         return out
+
+    def present_numpy(self) -> np.ndarray:
+        """The last SDR frame on the host (a frame is run if none was)."""
+        if self.last_output is None:
+            self.run_frame()
+        return self.last_output.sdr.cpu().numpy()
 
     def resize(self, width: int, height: int) -> None:
         if width == self.cfg.width and height == self.cfg.height:

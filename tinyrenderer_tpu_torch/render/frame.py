@@ -6,10 +6,10 @@ The deferred frame (``_render_frame_fused``) runs, in order: geometry
 scenes, full on textured ones), the main view's binning and raster, on
 textured scenes the mip level and the block-compacted material sample
 (K7 taps), the shadow atlas (K1 per view, cached by the engine), the
-refined shadow gates, the 1/8-rate sky + bilinear upsample, fused shading
-(K3) and tone mapping; with forward triangles (light billboards, gizmos)
-the overlay pass (K1 over dense bins, the compacted tile resolve, K7
-sprite taps) composites before tone mapping. The main view takes, as the
+refined shadow gates, the sky, fused shading (K3) and tone mapping; with
+forward triangles (light billboards, gizmos) the overlay pass (K1 over
+dense bins, the compacted tile resolve, K7 sprite taps) composites before
+tone mapping. The main view takes, as the
 reference does, the CSR stream (stream binning, K4, K5) for pools above
 4096 triangles under ``cfg.stream_raster``, and otherwise dense or scatter
 bins, K1 and K2.
@@ -26,6 +26,13 @@ The forward-only frame (``cfg.forward_only``, ``render_frame_forward``)
 rasterizes and resolves the deferred triangles, samples the material, and
 shades N-dot-L with an ambient floor.
 
+The sky (:func:`_sky_cf`) is sampled at 1/``sky_scale`` rate and upsampled
+(bilinear or, under ``sky_upsample="cubic"``, Catmull-Rom for a scale that
+divides the padded frame; a resize otherwise), or, under
+``sky_block_capacity > 0``, at full rate on the blocks that show
+background (``FrameOutput.sky_blocks`` counts them). The forward-only
+frame takes neither option, as the reference's.
+
 Raster + resolve follows the reference's branches: the fused raster +
 resolve kernel K6 under ``fused_resolve``, else K1 (or K4 on the stream)
 and select + eval. ``use_pallas=False`` selects the reference's kernel-free
@@ -33,8 +40,8 @@ and select + eval. ``use_pallas=False`` selects the reference's kernel-free
 plain versions: a CUDA tensor still launches the kernels, whose plain
 versions equal the reference's jnp paths.
 
-Branches of the reference not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md queue-1 item (:func:`check_ported`).
+The environment bakes the engine runs once (:func:`bake_env_cubemap`,
+:func:`bake_irradiance`, :func:`project_irradiance_sh`) close the module.
 """
 
 from __future__ import annotations
@@ -90,7 +97,8 @@ class FrameOutput:
     shadow_blocks: torch.Tensor   # () i32 shadow-boundary blocks wanted
     stream_overflow: torch.Tensor  # () i32 stream pairs wanted (0 off the
     #   stream path)
-    sky_blocks: torch.Tensor      # () i32 background blocks wanted (0)
+    sky_blocks: torch.Tensor      # () i32 background blocks wanted (0 off
+    #   the block-compacted sky)
 
 
 def _unpack_camera(camera_raw: torch.Tensor) -> dict:
@@ -176,28 +184,6 @@ def scaled_config(cfg: config.RenderConfig) -> config.RenderConfig:
                    height=max(cfg.tile_h, (cfg.height * pct) // 100))
 
 
-def check_ported(cfg: config.RenderConfig) -> None:
-    """Raise NotImplementedError for a configuration this port cannot run
-    yet, naming the ROADMAP.md queue-1 item that ports it."""
-    def refuse(what: str, item: str):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                                  f"queue 1 item {item})")
-
-    if cfg.native_texture_pool:
-        refuse("the native-size texture pool (native_texture_pool)", "14")
-    if cfg.render_scale_pct != 100 and not cfg.forward_only:
-        cfg = scaled_config(cfg)
-    s = cfg.sky_scale
-    if s > 1 and (cfg.padded_height % s or cfg.padded_width % s):
-        refuse("a non-integer sky upsample", "14")
-    if cfg.forward_only:
-        return
-    if cfg.sky_block_capacity > 0:
-        refuse("the block-compacted exact sky (sky_block_capacity > 0)", "14")
-    if s > 1 and cfg.sky_upsample != "bilinear":
-        refuse("a cubic sky upsample", "14")
-
-
 def render_frame(scene: SceneGPU, pool: sampling.TexturePoolGPU,
                  lights: LightsGPU, camera_raw: torch.Tensor,
                  params: torch.Tensor, env: Optional[EnvGPU],
@@ -205,9 +191,7 @@ def render_frame(scene: SceneGPU, pool: sampling.TexturePoolGPU,
                  atlas: Optional[torch.Tensor] = None) -> FrameOutput:
     """One camera frame. ``pool``: the material texture pool
     (``ScenePacker.pool_for``); ``atlas``: a cached
-    :func:`render_shadow_atlas` result, None renders it inline.
-    Configurations not ported yet raise (:func:`check_ported`)."""
-    check_ported(cfg)
+    :func:`render_shadow_atlas` result, None renders it inline."""
     # the plane and shadow matrix products must stay full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -250,17 +234,42 @@ def _render_frame_scaled(scene, pool, lights, camera_raw, params, env, cfg,
                    depth=post.resize_nearest(out.depth, H, W))
 
 
-def _sky_cf(env: EnvGPU, cam: dict, cfg: config.RenderConfig
-            ) -> torch.Tensor:
-    """(3, PH, PW) sky: the cube sampled at 1/sky_scale rate, channel-first,
-    bilinear integer upsample."""
-    s = cfg.sky_scale
+def _sky_cf(env: EnvGPU, cam: dict, cfg: config.RenderConfig,
+            valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(3, PH, PW) sky, channel-first, + () i32 background blocks wanted.
+
+    ``sky_block_capacity > 0``: the exact full-rate sky on the blocks of
+    the frame where ``valid`` (the main raster's hit mask) is unset, 0 on
+    the others (the composite never shows them). Otherwise the cube at
+    1/``sky_scale`` rate, upsampled: Catmull-Rom under
+    ``sky_upsample="cubic"``, else bilinear, where the scale divides the
+    padded frame; a bilinear resize where it does not."""
     PW, PH = cfg.padded_width, cfg.padded_height
-    sky = envops.skybox_colors(
-        env.env_cube, cam["proj_inv"], cam["view_inv"][:3, :3], PW // s,
-        PH // s, rgbe_win=env.sky_rgbe if cfg.sky_rgbe else None)
-    sky_c = sky.permute(2, 0, 1)
-    return post.upsample_bilinear_int_cf(sky_c, s, s) if s > 1 else sky_c
+    rgbe = env.sky_rgbe if cfg.sky_rgbe else None
+    proj_inv, rot_inv = cam["proj_inv"], cam["view_inv"][:3, :3]
+    dims = compact.block_dims(PH, PW)
+    cap = cfg.sky_block_capacity
+    if cap > 0 and dims is not None:
+        bh, bw = dims
+        nby, nbx = PH // bh, PW // bw
+        plan = compact.plan_blocks(compact.blocks_needed(~valid, bh, bw),
+                                   min(cap, nby * nbx))
+        cols = envops.skybox_colors_blocks(env.env_cube, proj_inv, rot_inv,
+                                           plan.slots, bh, bw, nbx, PW, PH,
+                                           rgbe_win=rgbe)
+        sky = compact.from_blocks(compact.scatter_blocks(cols, plan), PH, PW)
+        return sky.permute(2, 0, 1), plan.needed
+    s = cfg.sky_scale
+    zero = torch.zeros((), dtype=I32, device=valid.device)
+    sky = envops.skybox_colors(env.env_cube, proj_inv, rot_inv, PW // s,
+                               PH // s, rgbe_win=rgbe)
+    if s == 1:
+        return sky.permute(2, 0, 1), zero
+    if PH % s or PW % s:
+        return post.resize_bilinear(sky, PH, PW).permute(2, 0, 1), zero
+    up = (post.upsample_bicubic_int_cf if cfg.sky_upsample == "cubic"
+          else post.upsample_bilinear_int_cf)
+    return up(sky.permute(2, 0, 1), s, s), zero
 
 
 def _slim_table(cfg: config.RenderConfig) -> bool:
@@ -333,7 +342,7 @@ def render_frame_forward(scene: SceneGPU, pool: sampling.TexturePoolGPU,
     lvl = sampling.mip_level_from_uv(r.uv, pool.level_sizes[0])
     tex, tex_needed = compact.sample_pool_compacted(
         pool, r.record, r.uv, lvl, use_tex & valid, cfg.tex_block_capacity,
-        filter=cfg.texture_filter)
+        filter=cfg.texture_filter, duv=sampling.pool_duv(pool, r.uv))
     albedo = torch.where(use_tex[..., None], tex[..., :3], flat[..., 0:3])
     shade = torch.full(normal.shape[:2] + (1,), 0.1, device=dev)
     nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
@@ -343,8 +352,9 @@ def render_frame_forward(scene: SceneGPU, pool: sampling.TexturePoolGPU,
         shade = fma(ndotl[..., None], lights.dir_color[i], shade)
     hdr = albedo * shade * valid[..., None].to(F32)
     if env is not None:
-        hdr = torch.where(valid[..., None], hdr,
-                          _sky_cf(env, cam, cfg).permute(1, 2, 0))
+        plain_sky = replace(cfg, sky_block_capacity=0, sky_upsample="bilinear")
+        sky_c, _ = _sky_cf(env, cam, plain_sky, valid)
+        hdr = torch.where(valid[..., None], hdr, sky_c.permute(1, 2, 0))
     sdr = post.tone_map(hdr, params[PARAM_TONE_TYPE], params[PARAM_EXPOSURE])
     return FrameOutput(sdr=sdr[:H, :W], pick_id=r.object_id[:H, :W],
                        depth=depth[:H, :W], hdr=hdr[:H, :W],
@@ -436,9 +446,10 @@ def _render_frame_unfused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
                   if (env is not None and cfg.enable_ibl) else None)
     hdr = shading.shade_deferred(g, cam["position"], slights, P, D,
                                  irradiance, gates)
+    sky_blocks = zero
     if env is not None:
-        hdr = torch.where(g.mask[..., None], hdr,
-                          _sky_cf(env, cam, cfg).permute(1, 2, 0))
+        sky_c, sky_blocks = _sky_cf(env, cam, cfg, g.mask)
+        hdr = torch.where(g.mask[..., None], hdr, sky_c.permute(1, 2, 0))
 
     hdr, pick, overflow, big_overflow, fwd_needed = _forward_overlay(
         scene, clip, attrs, pool, hdr, g.object_id, overflow, big_overflow,
@@ -458,7 +469,7 @@ def _render_frame_unfused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
                        bin_overflow=overflow, shadow_overflow=shadow_overflow,
                        tex_overflow=torch.stack([tex_needed, fwd_needed]),
                        big_overflow=big_overflow, shadow_blocks=shadow_blocks,
-                       stream_overflow=_sovf(m_bins), sky_blocks=zero)
+                       stream_overflow=_sovf(m_bins), sky_blocks=sky_blocks)
 
 
 def _render_frame_fused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
@@ -519,7 +530,8 @@ def _render_frame_fused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
         lvl = sampling.mip_level_from_uv(uv, pool.level_sizes[0])
         rec, tex_needed = compact.sample_pool_compacted(
             pool, record, uv, lvl, use_tex & valid, cfg.tex_block_capacity,
-            filter=cfg.texture_filter)                # (H, W, 9)
+            filter=cfg.texture_filter,
+            duv=sampling.pool_duv(pool, uv))          # (H, W, 9)
         rec_c = rec.permute(2, 0, 1).contiguous()
 
     # ---- shadow atlas + channel-first gates ----
@@ -536,7 +548,8 @@ def _render_frame_fused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
         block_dims=(cfg.gate_block_h, cfg.gate_block_w))
 
     # ---- fused shading (K3) over the sky ----
-    sky_c = _sky_cf(env, cam, cfg) if env is not None else None
+    sky_c, sky_blocks = (_sky_cf(env, cam, cfg, valid) if env is not None
+                         else (None, zero))
     slights = shading.ShadingLights(
         point_position=lights.point_position, point_color=lights.point_color,
         dir_direction=lights.dir_direction, dir_color=lights.dir_color,
@@ -556,4 +569,23 @@ def _render_frame_fused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
                        bin_overflow=overflow, shadow_overflow=shadow_overflow,
                        tex_overflow=torch.stack([tex_needed, fwd_needed]),
                        big_overflow=big_overflow, shadow_blocks=shadow_blocks,
-                       stream_overflow=_sovf(m_bins), sky_blocks=zero)
+                       stream_overflow=_sovf(m_bins), sky_blocks=sky_blocks)
+
+
+# ---- the environment bakes the engine runs once -----------------------------
+
+def bake_env_cubemap(equirect: torch.Tensor, size: int,
+                     gamma_decode: bool = True) -> torch.Tensor:
+    """(6, size, size, 3) environment cube of an equirect HDR image."""
+    return envops.equirect_to_cubemap(equirect, size, gamma_decode)
+
+
+def bake_irradiance(env_cube: torch.Tensor, size: int) -> torch.Tensor:
+    """(6, size, size, 3) diffuse irradiance map of an environment cube."""
+    return envops.bake_irradiance(env_cube, size)
+
+
+def project_irradiance_sh(irradiance_cube: torch.Tensor) -> torch.Tensor:
+    """(9, 3) SH-9 projection of an irradiance map (shading evaluates the
+    polynomial instead of sampling the map)."""
+    return envops.sh_project_cubemap(irradiance_cube)

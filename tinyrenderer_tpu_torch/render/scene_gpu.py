@@ -117,7 +117,7 @@ class ScenePacker:
         self.cfg = cfg
         self.asset_search_paths = asset_search_paths
         self.pool = texlib.TexturePool.create(cfg)
-        self._pool_gpu: dict = {}     # (windowed, morton, device) -> pool
+        self._pool_gpu: dict = {}     # layout flags + device -> pool
         self._pool_dirty = True       # host records changed since packing
         self._mesh_cache: dict = {}
         self._material_cache: dict = {}
@@ -199,6 +199,16 @@ class ScenePacker:
         self._material_cache[key] = idx
         return idx
 
+    def _cached_pool(self, key: tuple, build):
+        """The device pool of one layout, built on first use; every layout
+        is dropped when a textured material changed the host records."""
+        if self._pool_dirty:
+            self._pool_gpu = {}
+            self._pool_dirty = False
+        if key not in self._pool_gpu:
+            self._pool_gpu[key] = build()
+        return self._pool_gpu[key]
+
     def texture_pool_gpu(self, device, windowed: bool = True,
                          morton: bool = False) -> sampling.TexturePoolGPU:
         """The composite material-record pool (9-channel u8 texels) on
@@ -207,23 +217,27 @@ class ScenePacker:
         shape). ``windowed`` (``cfg.windowed_pool``) packs each row with its
         bilinear neighbourhood; ``morton`` (``cfg.morton_pool``) stores each
         level in Z-curve order."""
-        if self._pool_dirty:
-            self._pool_gpu = {}
-            self._pool_dirty = False
-        key = (windowed, morton, str(device))
-        if key not in self._pool_gpu:
-            self._pool_gpu[key] = sampling.pack_texture_pool(
+        return self._cached_pool(
+            (windowed, morton, str(device)),
+            lambda: sampling.pack_texture_pool(
                 self.pool.record_arrays(), windowed=windowed, u8=True,
-                morton=morton, device=device)
-        return self._pool_gpu[key]
+                morton=morton, device=device))
 
-    def pool_for(self, cfg: config.RenderConfig,
-                 device) -> sampling.TexturePoolGPU:
+    def native_pool_gpu(self, device, windowed: bool = True
+                        ) -> sampling.NativeTexturePoolGPU:
+        """The native-size record pool (``cfg.native_texture_pool``: each
+        record at its sources' own size with its own mip chain) on
+        ``device``."""
+        return self._cached_pool(
+            ("native", windowed, str(device)),
+            lambda: sampling.pack_native_pool(
+                self.pool.native_record_chains(), windowed=windowed,
+                device=device))
+
+    def pool_for(self, cfg: config.RenderConfig, device):
         """The pool matching a RenderConfig's layout flags."""
         if cfg.native_texture_pool:
-            raise NotImplementedError(
-                "the native-size texture pool (native_texture_pool) is not "
-                "ported yet (ROADMAP.md queue 1 item 14)")
+            return self.native_pool_gpu(device, cfg.windowed_pool)
         return self.texture_pool_gpu(device, cfg.windowed_pool,
                                      cfg.morton_pool)
 
