@@ -53,7 +53,16 @@ runs, each phase asserting or letting its exception propagate:
    scale of 3, which does not divide the frame; (d) ``performance_preset()``,
    ``fidelity_preset()`` and ``reference_parity()`` (the native-size
    texture pool). Each frame of (b)-(d) is settled, timed over ten engine
-   frames and rendered through the kernels and through the plain versions.
+   frames and rendered through the kernels and through the plain versions;
+8. the editor and its host surfaces on ``levels/demo.lvl`` (see
+   :func:`editor_phase`): (a) pick, gizmo, hover, axis drag, Escape and
+   Delete through ``EditorApp`` at 1920x1080, the gizmo frame through the
+   kernels and through the plain versions; (b) bench.py's editor round
+   trip (50 add/deletes, 10 pick + gizmo frames, the steady frame, timed),
+   the saved level loaded into a fresh engine renders the same frame; (c)
+   the kernel reload: unchanged sources build nothing, an edited copy of
+   ``csrc/`` is rebuilt and swapped in, a broken one keeps the old library;
+   (d) the web viewer at 1280x720 over HTTP; (e) the headless CLI.
 
 A kernel's time is its share of a run of launches: N back-to-back calls
 of its wrapper between one pair of CUDA events, divided by N, the median
@@ -97,11 +106,14 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LEVEL = os.path.join(ROOT, "levels", "demo.lvl")
@@ -240,6 +252,376 @@ def _patched(module, name: str, fn):
         yield
     finally:
         setattr(module, name, old)
+
+
+def _decode_png(data: bytes):
+    """An 8-bit RGB / RGBA PNG as an (H, W, C) uint8 array, with ``zlib``
+    (the card's machine has no PIL): scanline filters 0 (None, the
+    ``zlib`` encoder's) and 1 (Sub, the native encoder's)."""
+    import numpy as np
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+    w, h, depth, ctype, _, _, interlace = head
+    assert depth == 8 and ctype in (2, 6) and interlace == 0, head
+    c = 4 if ctype == 6 else 3
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + w * c)
+    out = np.empty((h, w * c), np.uint8)
+    for y in range(h):
+        f, row = raw[y, 0], raw[y, 1:]
+        if f == 0:
+            cur = row
+        elif f == 1:
+            cur = (np.cumsum(row.reshape(w, c), axis=0, dtype=np.int64)
+                   % 256).astype(np.uint8).reshape(-1)
+        else:
+            raise ValueError(f"PNG filter {f} is not decoded here")
+        out[y] = cur
+    return out.reshape(h, w, c)
+
+
+def _pixel_of(pick, oid: int) -> tuple[float, float]:
+    """The middle pixel of object ``oid`` in a host pick map."""
+    import numpy as np
+    ys, xs = np.nonzero(pick == oid)
+    assert len(ys), f"object {oid} not visible"
+    return float(xs[len(xs) // 2]), float(ys[len(ys) // 2])
+
+
+def _most_covered(pick) -> int:
+    """The object with the most pixels in a host pick map (the ground slab,
+    id 1, aside, as the reference's editor tests do)."""
+    import numpy as np
+    ids, counts = np.unique(pick[pick > 1], return_counts=True)
+    assert len(ids), "no object visible"
+    return int(ids[np.argmax(counts)])
+
+
+def editor_phase(dev, smi: str, cfg, viewer_cfg, edits: int, cli_args: list,
+                 kernel_vs_plain, reset_counts, add_counts) -> None:
+    """Phase 8: the editor round trip and its host surfaces, on
+    ``levels/demo.lvl`` under ``cfg`` (the viewer under ``viewer_cfg``).
+    Each path's launches are counted from 0 (``reset_counts``) and added
+    to the kernels line (``add_counts``); every time is printed with the
+    card's name and power limit."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from tinyrenderer_tpu_torch import kernels
+    from tinyrenderer_tpu_torch.editor import events as ev
+    from tinyrenderer_tpu_torch.editor.gizmo import HOVERED_COLOR
+    from tinyrenderer_tpu_torch.editor.session import EditorApp
+    from tinyrenderer_tpu_torch.ops import raster
+    from tinyrenderer_tpu_torch.render import frame as framelib
+    from tinyrenderer_tpu_torch.render import reload as reloadlib
+    from tinyrenderer_tpu_torch.render.engine import Engine
+    from tinyrenderer_tpu_torch.scene import demo
+    from tinyrenderer_tpu_torch.utils import image_io
+    from tinyrenderer_tpu_torch.viewer.server import ViewerServer
+
+    left = ev.MouseButton.Left
+
+    def event_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def spread(ms):
+        return (f"median {statistics.median(ms):.3f} ms, p90 "
+                f"{float(np.percentile(ms, 90)):.3f} ms over {len(ms)}")
+
+    def settle_app(app, label):
+        for _ in range(8):
+            cfg_before, atlas_frame = app.engine.cfg, app.engine._atlas is None
+            out = app.run_frame(0.0)
+            torch.cuda.synchronize()
+            if app.engine.cfg == cfg_before and not atlas_frame:
+                return out
+        raise AssertionError(f"{label}: capacities did not settle")
+
+    def click(app, x, y):
+        app.handle_event(ev.MouseInput(left, True, x, y))
+        app.handle_event(ev.MouseInput(left, False, x, y))
+
+    def editor(c):
+        return EditorApp(Engine(c, device=dev, level_path=LEVEL))
+
+    # (a) pick, gizmo, hover, drag, Escape, Delete
+    app = editor(cfg)
+    eng = app.engine
+    reset_counts()
+    settle_app(app, "8a demo.lvl")
+    oid = _most_covered(app.picker.latest)
+    click(app, *_pixel_of(app.picker.latest, oid))
+    gizmo = app.controller.gizmo_handler.gizmo
+    assert app.selected_object_id == oid and len(gizmo.part_axis) == 3
+    k1 = raster.K1_LAUNCHES
+    shown, select_ms = event_ms(lambda: app.run_frame(0.0))
+    views = eng.cfg.num_shadow_views
+    assert eng.cfg.has_forward
+    # the main view, the overlay, and the atlas of the repack (the arrows
+    # are new world objects)
+    assert raster.K1_LAUNCHES - k1 == 2 + views, raster.K1_LAUNCHES - k1
+    pick = app.picker.latest
+    arrows = [p for p in sorted(gizmo.part_axis) if (pick == p).any()]
+    assert arrows, "no gizmo arrow in the pick map"
+    ax, ay = _pixel_of(pick, arrows[0])
+    app.handle_event(ev.CursorMoved(ax, ay))
+    assert gizmo.hovered_part_id == arrows[0]
+    albedo = eng.world.get_world_object(arrows[0]).get_renderable() \
+        .model_descriptor.material_descriptor.flat.albedo
+    assert np.array_equal(albedo, HOVERED_COLOR)
+    hovered, hover_ms = event_ms(lambda: app.run_frame(0.0))
+    mask = torch.as_tensor(pick == arrows[0], device=dev)
+    assert (hovered.sdr[mask] != shown.sdr[mask]).any(), "the arrow kept its colour"
+    axis = gizmo.part_axis[arrows[0]]
+    start = eng.world.get_world_object(oid).transform.position.copy()
+    app.handle_event(ev.MouseInput(left, True, ax, ay))
+    for k in range(1, 5):
+        app.handle_event(ev.CursorMoved(ax + 10 * k, ay + 4 * k))
+    app.handle_event(ev.MouseInput(left, False, ax + 40, ay + 16))
+    delta = eng.world.get_world_object(oid).transform.position - start
+    assert abs(delta[axis]) > 1e-3 and all(
+        abs(delta[k]) < 1e-4 for k in range(3) if k != axis), (axis, delta)
+    _, drag_ms = event_ms(lambda: app.run_frame(0.0))
+    # the gizmo frame's inputs, for the kernels-vs-plain frame below
+    c = eng.cfg
+    shown_args = (eng._pack.scene, eng._packer.pool_for(c, dev),
+                  eng._pack.lights, torch.as_tensor(eng.camera.to_raw(),
+                                                    device=dev),
+                  eng.params, eng._ensure_env(), c)
+    n = len(eng.world)
+    app.handle_event(ev.KeyInput("Escape", True))
+    assert app.selected_object_id is None and len(eng.world) == n - 3
+    app.run_frame(0.0)
+    assert not np.isin(app.picker.latest, list(gizmo.part_axis) + arrows).any()
+    click(app, *_pixel_of(app.picker.latest, oid))
+    app.handle_event(ev.KeyInput("Delete", True))
+    assert eng.world.get_world_object(oid) is None
+    out = app.run_frame(0.0)
+    assert not (app.picker.latest == oid).any() and torch.isfinite(out.hdr).all()
+    run = add_counts()
+    fast = kernel_vs_plain("8a demo.lvl with the gizmo",
+                           lambda: framelib.render_frame(*shown_args))
+    assert all((fast.pick_id == p).any() for p in arrows)
+    print(f"8a editor {c.width}x{c.height} on demo.lvl: selected {oid}, arrows "
+          f"{sorted(gizmo.part_axis) or arrows} (axis {axis}, moved "
+          f"{delta[axis]:+.4f}); select frame {select_ms:.3f} ms, hover "
+          f"(repack) {hover_ms:.3f} ms, drag {drag_ms:.3f} ms; launches {run} "
+          f"({smi})", flush=True)
+
+    # (b) bench.py's editor round trip, then the level saved and reloaded
+    app = editor(cfg)
+    eng = app.engine
+    settle_app(app, "8b demo.lvl")
+    reset_counts()
+    added, edit_ms = [], []
+    for i in range(edits):
+        if i % 2 == 0 or not added:
+            w = demo.build_demo_world(n_cubes=1)
+            added.append(eng.world.add_world_object(
+                next(o for _oid, o in w.world_objects())))
+        else:
+            eng.world.remove_world_object(added.pop())
+        edit_ms.append(event_ms(lambda: app.run_frame(0.016))[1])
+    cx, cy = cfg.width // 2, cfg.height // 2
+    frame = lambda: event_ms(lambda: app.run_frame(0.016))[1]  # noqa: E731
+    app.handle_event(ev.CursorMoved(x=cx, y=cy))
+    pick_ms = [frame() for _ in range(5)]
+    app.handle_event(ev.MouseInput(left, True, cx, cy))
+    for _ in range(4):
+        app.handle_event(ev.CursorMoved(x=cx + 10, y=cy))
+        pick_ms.append(frame())
+    app.handle_event(ev.MouseInput(left, False, cx + 10, cy))
+    pick_ms.append(frame())
+    selected = app.selected_object_id
+    app.handle_event(ev.KeyInput("Escape", True))   # arrows are not saved
+    saving = settle_app(app, "8b after the edits")
+    steady_ms = [frame() for _ in range(10)]
+    run = add_counts()
+    print(f"8b round trip {cfg.width}x{cfg.height}: edit frame "
+          f"{spread(edit_ms)}; pick + gizmo frame {spread(pick_ms)} (selected "
+          f"{selected}); steady frame {spread(steady_ms)}; launches {run} "
+          f"({smi})", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lvl_") as tmp:
+        path = os.path.join(tmp, "roundtrip.lvl")
+        eng.save_level(path)
+        fresh = Engine(cfg, device=dev, level_path=path)
+        for _ in range(8):
+            cfg_before, atlas_frame = fresh.cfg, fresh._atlas is None
+            loaded = fresh.run_frame(0.0)
+            if fresh.cfg == cfg_before and not atlas_frame:
+                break
+        assert torch.equal(loaded.pick_id, saving.pick_id), "8b: pick ids differ"
+        assert torch.equal(loaded.sdr, saving.sdr), "8b: the frame differs"
+    print(f"8b level saved after the round trip ({os.path.basename(path)}) "
+          f"and loaded by a fresh engine: pick ids and SDR equal", flush=True)
+    del fresh
+
+    # (c) the kernel reload: unchanged, edited and broken sources
+    base = app.run_frame(0.0)
+    nvcc = kernels._nvcc
+
+    def no_nvcc():
+        raise AssertionError("nvcc ran for unchanged sources")
+    kernels._nvcc = no_nvcc
+    try:
+        res = eng.recompile_kernels()
+    finally:
+        kernels._nvcc = nvcc
+    assert res.ok and not res.changed, res
+    assert eng.notifier.history()[-1].message == "Kernels up to date"
+    lib0, path0 = kernels._lib, kernels._lib_path
+    csrc0, build0 = kernels.CSRC, kernels.BUILD_DIR
+
+    def same_frame(label):
+        out = app.run_frame(0.0)
+        torch.cuda.synchronize()
+        for f in ("pick_id", "sdr", "hdr"):
+            assert torch.equal(getattr(out, f), getattr(base, f)), (label, f)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reload_") as tmp:
+        try:
+            edited = os.path.join(tmp, "csrc_edited")
+            shutil.copytree(csrc0, edited)
+            with open(os.path.join(edited, "shade.cu"), "a") as f:
+                f.write("\n// appended by chip_smoke.py phase 8c\n")
+            kernels.CSRC = type(csrc0)(edited)
+            kernels.BUILD_DIR = type(build0)(tmp) / "build"
+            t0 = time.perf_counter()
+            res = eng.recompile_kernels()
+            rebuild_s = time.perf_counter() - t0
+            assert res.ok and res.reloaded == [reloadlib.LIBRARY], res
+            assert kernels._lib is not lib0 and kernels._lib_path != path0
+            assert eng.notifier.history()[-1].message == "Reloaded kernels: csrc"
+            same_frame("rebuilt library")
+            lib1, path1 = kernels._lib, kernels._lib_path
+            broken = os.path.join(tmp, "csrc_broken")
+            shutil.copytree(edited, broken)
+            with open(os.path.join(broken, "raster.cu"), "a") as f:
+                f.write("\nthis is not C++\n")
+            kernels.CSRC = type(csrc0)(broken)
+            t0 = time.perf_counter()
+            res = eng.recompile_kernels()
+            failed_s = time.perf_counter() - t0
+            assert not res.ok and "nvcc failed" in res.error, res
+            toast = eng.notifier.history()[-1]
+            assert toast.level == "error" and "csrc" in toast.message
+            assert kernels._lib is lib1 and kernels._lib_path == path1
+            same_frame("the old library after a failed build")
+        finally:
+            kernels.CSRC, kernels.BUILD_DIR = csrc0, build0
+            res = eng.recompile_kernels()      # back to the checkout's build
+    assert res.ok and kernels._lib_path == path0, res
+    same_frame("the checkout's library again")
+    print(f"8c kernel reload: unchanged sources, no nvcc; an edited csrc/ "
+          f"rebuilt and swapped in {rebuild_s:.1f} s ({path1.name}), next "
+          f"frame bit-equal; a broken csrc/ failed in {failed_s:.1f} s with an "
+          f"error toast and the old library kept rendering bit-equal ({smi})",
+          flush=True)
+    del app, eng, base
+
+    # (d) the web viewer over HTTP
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    vapp = editor(viewer_cfg)
+    srv = ViewerServer(vapp, port=0)
+    srv.start_background()
+    url = f"http://127.0.0.1:{srv.port}"
+
+    def get(path):
+        with opener.open(url + path, timeout=120) as r:
+            return r.read()
+
+    def post(path, obj):
+        req = urllib.request.Request(url + path, data=json.dumps(obj).encode(),
+                                     method="POST")
+        with opener.open(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    try:
+        reset_counts()
+        png = get("/frame.png")
+        img = _decode_png(png)
+        assert np.array_equal(img, vapp.engine.present_numpy())
+        assert img.shape == (viewer_cfg.height, viewer_cfg.width, 3)
+        with srv.lock:
+            vpick = vapp.picker.latest
+        voi = _most_covered(vpick)
+        x, y = _pixel_of(vpick, voi)
+        post("/event", [{"type": "button", "button": "left", "pressed": p,
+                         "x": x, "y": y} for p in (True, False)])
+        assert json.loads(get("/state"))["selected"] == voi
+        before = _decode_png(get("/frame.png")).astype(np.float64).mean()
+        post("/set", {"name": "global_params", "path": ["exposure"],
+                      "value": 4.0})
+        after = _decode_png(get("/frame.png")).astype(np.float64).mean()
+        assert after > before + 5, (before, after)
+        post("/action", {"action": "set_config", "preset": "performance"})
+        assert vapp.engine.cfg.texture_filter == "stochastic"
+        assert _decode_png(get("/frame.png")).shape == img.shape
+
+        def round_trips():
+            ms = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                get("/frame.png")
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return ms
+        # with the gizmo shown every frame is an edit frame (it rescales its
+        # arrows, which repacks and re-renders the atlas); then without
+        gizmo_ms = round_trips()
+        post("/event", {"type": "key", "key": "Escape", "pressed": True})
+        assert json.loads(get("/state"))["selected"] is None
+        get("/frame.png")
+        get_ms = round_trips()
+        sdr = vapp.engine.present_numpy()
+        enc_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            image_io.encode_png(sdr)
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+        run = add_counts()
+    finally:
+        srv.shutdown()
+    print(f"8d viewer {viewer_cfg.width}x{viewer_cfg.height}: /frame.png equals "
+          f"present_numpy, click selected {voi}, exposure 4 mean "
+          f"{before:.1f} -> {after:.1f}, performance preset renders; PNG encode "
+          f"{spread(enc_ms)} ({len(png)} bytes), /frame.png round trip "
+          f"{spread(get_ms)}, with the gizmo shown {spread(gizmo_ms)}; "
+          f"launches {run} ({smi})", flush=True)
+
+    # (e) the headless CLI, in a process of its own
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        out_png = os.path.join(tmp, "cli.png")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "tinyrenderer_tpu_torch",
+                              *cli_args, "--out", out_png, "--stats"],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        cli_s = time.perf_counter() - t0
+        assert res.returncode == 0, res.stderr[-4000:]
+        assert os.path.exists(out_png), "the CLI wrote no PNG"
+        stats = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith("visible objects:")]
+        assert stats, res.stdout
+        with open(out_png, "rb") as f:
+            shape = _decode_png(f.read()).shape
+    print(f"8e CLI {' '.join(cli_args)}: rc 0, {shape[1]}x{shape[0]} PNG, "
+          f"{stats[0]}; {cli_s:.1f} s with the process start ({smi})",
+          flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -431,6 +813,19 @@ def main(argv: list[str]) -> int:
     launches = dict.fromkeys(launch_counts(), 0)   # main-path runs only
     profiles = []
 
+    def reset_counts():
+        raster.K1_LAUNCHES = raster.K4_LAUNCHES = resolve.K2_LAUNCHES = 0
+        resolve.K5_LAUNCHES = shading.K3_LAUNCHES = sampling.K7_LAUNCHES = 0
+        raster.K6_LAUNCHES = 0
+
+    def add_counts():
+        """Adds the counts since reset_counts to ``launches``; returns the
+        run's non-zero counts."""
+        run = launch_counts()
+        for k, n in run.items():
+            launches[k] += n
+        return {k: n for k, n in run.items() if n}
+
     def timed_frames(engine, names, label):
         """Ten engine frames, every launch count set to 0 just before; the
         first re-renders the shadow atlas. Adds the counts read just after
@@ -440,9 +835,7 @@ def main(argv: list[str]) -> int:
         engine._atlas = None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        raster.K1_LAUNCHES = raster.K4_LAUNCHES = resolve.K2_LAUNCHES = 0
-        resolve.K5_LAUNCHES = shading.K3_LAUNCHES = sampling.K7_LAUNCHES = 0
-        raster.K6_LAUNCHES = 0
+        reset_counts()
         frame_ms, per_frame = [], []
         for _ in range(10):
             before = launch_counts()
@@ -456,8 +849,7 @@ def main(argv: list[str]) -> int:
             now = launch_counts()
             per_frame.append(tuple(now[k] - before[k] for k in names))
         run = launch_counts()
-        for k, n in run.items():
-            launches[k] += n
+        add_counts()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if profile:
             r = {"config": label, "card": smi,
@@ -955,6 +1347,12 @@ def main(argv: list[str]) -> int:
             assert run["K7"] >= 20, "the native windowed taps took no K7"
         del eng_d
     print("7 steady frame ms: " + json.dumps(steady7), flush=True)
+
+    # ---- phase 8: the editor and its host surfaces ----------------------
+    editor_phase(dev, smi, RenderConfig(width=1920, height=1080),
+                 RenderConfig(width=1280, height=720), 50,
+                 ["--level", os.path.relpath(LEVEL, ROOT)], kernel_vs_plain,
+                 reset_counts, add_counts)
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),

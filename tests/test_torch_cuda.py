@@ -529,3 +529,55 @@ def test_irradiance_bake_on_the_card_and_cache_round_trip(cuda, tmp_path):
     loaded = engine()._ensure_env().irradiance
     assert loaded.is_cuda
     assert np.array_equal(loaded.cpu().numpy(), half.astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_library_rebuild_swap_and_failed_build(cuda, tmp_path):
+    """An engine on the card: unchanged sources build nothing; an edited
+    copy of csrc/ is rebuilt under a new hash and swapped in, and the
+    kernels launch from it with the same results; a broken copy leaves the
+    error in the result and an error toast, and the old library goes on
+    serving. Restoring the sources swaps the first library back."""
+    import shutil
+
+    from tinyrenderer_tpu_torch import kernels
+    from tinyrenderer_tpu_torch.config import RenderConfig
+    from tinyrenderer_tpu_torch.render import reload as reloadlib
+    from tinyrenderer_tpu_torch.render.engine import Engine
+    eng = Engine(RenderConfig(width=256, height=128), device=cuda)
+    _, bins = _bins(cuda, 16, 128)
+    want = raster.rasterize_binned(bins, 16, 128)
+    lib0, path0 = kernels._lib, kernels._lib_path
+    csrc0, build0 = kernels.CSRC, kernels.BUILD_DIR
+    res = eng.recompile_kernels()
+    assert res.ok and not res.changed and kernels._lib is lib0
+    try:
+        edited = tmp_path / "edited"
+        shutil.copytree(csrc0, edited)
+        with open(edited / "select_eval.cu", "a") as f:
+            f.write("\n// edited\n")
+        kernels.CSRC, kernels.BUILD_DIR = edited, tmp_path / "build"
+        res = eng.recompile_kernels()
+        assert res.ok and res.reloaded == [reloadlib.LIBRARY]
+        assert kernels._lib is not lib0 and kernels._lib_path != path0
+        assert eng.notifier.history()[-1].message == "Reloaded kernels: csrc"
+        n = raster.K1_LAUNCHES
+        got = raster.rasterize_binned(bins, 16, 128)
+        assert raster.K1_LAUNCHES == n + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        lib1 = kernels._lib
+        broken = tmp_path / "broken"
+        shutil.copytree(edited, broken)
+        with open(broken / "raster.cu", "a") as f:
+            f.write("\nthis is not C++\n")
+        kernels.CSRC = broken
+        res = eng.recompile_kernels()
+        assert not res.ok and "nvcc failed" in res.error
+        assert eng.notifier.history()[-1].level == "error"
+        assert kernels._lib is lib1
+        got = raster.rasterize_binned(bins, 16, 128)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    finally:
+        kernels.CSRC, kernels.BUILD_DIR = csrc0, build0
+        res = eng.recompile_kernels()
+    assert res.ok and kernels._lib_path == path0

@@ -20,6 +20,12 @@ PORT_MODULES = ["tinyrenderer_tpu_torch"] + sorted(
     m.name for m in pkgutil.walk_packages(tinyrenderer_tpu_torch.__path__,
                                           "tinyrenderer_tpu_torch."))
 FORBIDDEN = ("jax", "jaxlib", "tinyrenderer_tpu")
+# the editor, its host surfaces and the entry points
+HOST_MODULES = ["tinyrenderer_tpu_torch." + m for m in (
+    "editor.events", "editor.gizmo", "editor.controller", "editor.picking",
+    "editor.session", "render.global_params", "render.reload",
+    "utils.notify", "utils.containers", "utils.image_io", "viewer.server",
+    "viewer.__main__", "__main__")]
 
 
 def _forbidden(name: str) -> bool:
@@ -33,7 +39,10 @@ def test_port_never_imports_jax():
     assert {"tinyrenderer_tpu_torch.config",
             "tinyrenderer_tpu_torch.scene.demo",
             "tinyrenderer_tpu_torch.assets.native",
-            "tinyrenderer_tpu_torch.utils.verify"} <= set(PORT_MODULES)
+            "tinyrenderer_tpu_torch.utils.verify",
+            "tinyrenderer_tpu_torch.editor.session",
+            "tinyrenderer_tpu_torch.viewer.server",
+            "tinyrenderer_tpu_torch.__main__"} <= set(PORT_MODULES)
     assert "tinyrenderer_tpu_torch.shared" not in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
@@ -41,6 +50,34 @@ def test_port_never_imports_jax():
             f"bad = sorted(m for m in sys.modules if any(m == f or "
             f"m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
             "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+
+
+def test_host_surfaces_need_no_pil():
+    """The editor, its host surfaces and both entry points are walked, and
+    they import without PIL: encoding a PNG, saving one and serving the
+    viewer's page need none (the card's machine has no PIL)."""
+    assert set(HOST_MODULES) <= set(PORT_MODULES)
+    code = ("import builtins, importlib, sys\n"
+            "real = builtins.__import__\n"
+            "def guard(name, *a, **k):\n"
+            "    if name == 'PIL' or name.startswith('PIL.'):\n"
+            "        raise ImportError('PIL is not on the card machine')\n"
+            "    return real(name, *a, **k)\n"
+            "builtins.__import__ = guard\n"
+            f"for m in {HOST_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import numpy as np, tempfile, os\n"
+            "from tinyrenderer_tpu_torch.utils import image_io\n"
+            "from tinyrenderer_tpu_torch.assets import native\n"
+            "img = np.zeros((4, 5, 3), np.uint8)\n"
+            "native.encode_png = lambda a: None\n"
+            "assert image_io.encode_png(img)[:4] == b'\\x89PNG'\n"
+            "p = os.path.join(tempfile.mkdtemp(), 'a.png')\n"
+            "image_io.save_png(p, img)\n"
+            "assert 'PIL' not in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr

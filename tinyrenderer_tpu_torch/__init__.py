@@ -6,7 +6,14 @@ mirrors its module names (``ops/raster.py``, ``ops/resolve.py``, ...,
 to its counterpart. It imports ``torch`` and never ``jax``, and nothing of
 the JAX package: it keeps its own copies of the reference's JAX-free
 modules under the same relative paths (``config``, ``editor.params``,
-``scene``, ``assets``, ``utils.math3d``, ``utils.verify``).
+``editor.events``, ``editor.gizmo``, ``editor.controller``, ``scene``,
+``assets``, ``utils.math3d``, ``utils.verify``, ``utils.notify``,
+``utils.containers``).
+
+Entry points: ``python -m tinyrenderer_tpu_torch`` renders a level to a
+PNG, ``python -m tinyrenderer_tpu_torch.viewer`` serves the interactive
+editor (``editor.session.EditorApp``) over HTTP; both render on the CUDA
+device unless ``--device cpu`` asks for the CPU.
 
 Idiom: plain functions on tensors, dataclasses of tensors in place of the
 JAX NamedTuple pytrees, and an explicit ``device`` everywhere (an

@@ -159,7 +159,8 @@ def compute_tangents(positions: np.ndarray, tex_coords: np.ndarray,
 
 def encode_png(img: np.ndarray):
     """Native PNG encode (Sub filter + zlib level 1) -> bytes, or None for
-    the PIL fallback. img: (H, W, 3|4) uint8 contiguous."""
+    the standard-library fallback (``utils/image_io``). img: (H, W, 3|4)
+    uint8 contiguous."""
     lib = get_lib()
     if lib is None:
         return None

@@ -7,7 +7,10 @@ together, and the objects are linked into
 ``build/kernels/libtr_kernels_<hash>.so`` (the hash covers the sources and
 the flags, so an edited source rebuilds), loaded with ``ctypes``. The
 build happens on the first CUDA launch, never at import, and never falls
-back: a failed build raises.
+back: a failed build raises. :func:`reload` rebuilds after an edit of the
+sources and swaps the library only once the new one is built, loaded and
+bound; every wrapper calls :func:`library` at each launch, so the swap
+reaches every kernel.
 
 Every launching entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.
@@ -74,6 +77,7 @@ RETURNS = {"tr_raster_scratch_bytes": ctypes.c_longlong,
            "tr_raster_stream_scratch_bytes": ctypes.c_longlong}
 
 _lib: ctypes.CDLL | None = None
+_lib_path: Path | None = None        # the file _lib was loaded from
 build_seconds: float | None = None   # wall time of the last build + load
 
 
@@ -109,35 +113,57 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
             for s, o in zip(SOURCES, objs)]
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for cmd in jobs]
-    outs = [p.communicate() for p in procs]       # wait for every compile
-    for cmd, p, (so, se) in zip(jobs, procs, outs):
-        _check_nvcc(cmd, so, se, p.returncode)
-    tmp = BUILD_DIR / f"{tag}.tmp"
-    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
-    res = subprocess.run(link, capture_output=True, text=True)
-    _check_nvcc(link, res.stdout, res.stderr, res.returncode)
-    for o in objs:
-        o.unlink()
-    os.replace(tmp, out)
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in jobs]
+        outs = [p.communicate() for p in procs]   # wait for every compile
+        for cmd, p, (so, se) in zip(jobs, procs, outs):
+            _check_nvcc(cmd, so, se, p.returncode)
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, res.stdout, res.stderr, res.returncode)
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
+
+
+def _build_and_load() -> ctypes.CDLL:
+    """Build the library of the current sources, load and bind it, then
+    make it the one every launch uses."""
+    global _lib, _lib_path, build_seconds
+    t0 = time.perf_counter()
+    path = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = RETURNS.get(name, ctypes.c_int)
+    _lib, _lib_path = lib, path
+    build_seconds = time.perf_counter() - t0
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    global _lib, build_seconds
-    if _lib is None:
-        t0 = time.perf_counter()
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = RETURNS.get(name, ctypes.c_int)
-        _lib = lib
-        build_seconds = time.perf_counter() - t0
-    return _lib
+    return _lib if _lib is not None else _build_and_load()
+
+
+def reload() -> bool:
+    """Rebuild the library if the sources under ``CSRC`` changed since it
+    was loaded, and swap it in once built, loaded and bound: True when it
+    was swapped. A failed build raises and the loaded library keeps
+    serving. Without a loaded library there is nothing to swap (the next
+    launch builds from the current sources); on unchanged sources nothing
+    is compiled. A new source hash names a new file, so ``dlopen`` never
+    hands back the handle of an older build under the same name."""
+    if _lib is None or library_path() == _lib_path:
+        return False
+    _build_and_load()
+    return True
 
 
 def stream_handle(device: torch.device) -> int:
