@@ -62,7 +62,16 @@ runs, each phase asserting or letting its exception propagate:
    the saved level loaded into a fresh engine renders the same frame; (c)
    the kernel reload: unchanged sources build nothing, an edited copy of
    ``csrc/`` is rebuilt and swapped in, a broken one keeps the old library;
-   (d) the web viewer at 1280x720 over HTTP; (e) the headless CLI.
+   (d) the web viewer at 1280x720 over HTTP; (e) the headless CLI;
+9. the multi-device frame (:func:`sharded_phase`): four gloo ranks of
+   ``torch.distributed`` sharing the card render (a) ``levels/demo.lvl``
+   at 1920x1080 with its overlay in four bands (and again through the
+   plain versions), (b) two cameras over dp=2, sp=2, (c) the high-poly
+   world with SSR at strength 1, (d) the textured world fused and under
+   ``fused_resolve``; (e) one nccl rank renders demo.lvl bit-equal to the
+   single-card frame. Each frame is held against the single-card frame of
+   its ``sharded_config``; each rank counts its launches from 0 and times
+   its steady frame and its collectives with CUDA events.
 
 A kernel's time is its share of a run of launches: N back-to-back calls
 of its wrapper between one pair of CUDA events, divided by N, the median
@@ -624,6 +633,172 @@ def editor_phase(dev, smi: str, cfg, viewer_cfg, edits: int, cli_args: list,
           flush=True)
 
 
+def _sdr_bars(label: str, a, b, band_h: int) -> tuple:
+    """tests/test_sharded.py's bar for a sharded frame at a realistic size
+    (``test_sharded_512``, :224-230), ``a`` against the single-card frame
+    ``b`` (H, W, 3) u8 on the host: more than 1 LSB on under 1% of the
+    pixels, more than 16 LSB on under 0.1%. Band-local plane arithmetic
+    rounds otherwise than the whole frame's and flips hard shadow gates and
+    mip levels on isolated pixels anywhere in a band. Returns (share over 1
+    LSB, share over 16, share of the rows off the band seams within 1)."""
+    import numpy as np
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
+    over, over16 = float((d > 1).mean()), float((d > 16).mean())
+    assert over < 1e-2, f"{label}: {(d > 1).sum()} pixels differ by > 1 LSB"
+    assert over16 < 1e-3, f"{label}: {(d > 16).sum()} pixels differ by > 16"
+    interior = np.ones(d.shape[0], bool)
+    for k in range(d.shape[0] // band_h + 1):
+        interior[max(0, k * band_h - 1):k * band_h + 1] = False
+    return over, over16, float((d[interior] <= 1).mean())
+
+
+def sharded_phase(dev, smi: str, engines: dict, launches: dict,
+                  verify) -> None:
+    """Phase 9: the multi-device frame over ranks of ``torch.distributed``
+    sharing the card (``tinyrenderer_tpu_torch.parallel``). One launch of
+    four gloo ranks renders (a) demo.lvl at 1920x1080 with its overlay in
+    four bands, and again through the plain versions; (b) a batch of two
+    cameras over dp=2, sp=2; (c) the high-poly world with SSR at strength
+    1 (the stream raster); (d) the textured world fused and under
+    ``fused_resolve``; then (e) one nccl rank renders demo.lvl in one band.
+    Each frame is held against the single-card frame of its
+    ``sharded_config`` on the card (tests/test_sharded.py's bars; (e)
+    bit-equal); each rank counts its launches from 0 before its first
+    frame, and times its steady frame and its collectives with CUDA
+    events. ``engines``: label -> (settled engine, world spec)."""
+    import numpy as np
+    import torch
+    from tinyrenderer_tpu_torch.parallel import jobs, sharded
+    from tinyrenderer_tpu_torch.parallel.launch import launch
+    from tinyrenderer_tpu_torch.render import frame as framelib
+
+    t_phase = time.perf_counter()
+    nan = float("nan")        # no times off the card (a CPU rehearsal)
+    R = dataclasses.replace
+    lvl, _ = engines["lvl"]
+    cam2 = dataclasses.replace(lvl.camera, orientation=lvl.camera.orientation
+                               + np.array([0.25, 0.0, -0.1], np.float32))
+    cams2 = np.stack([lvl.camera.to_raw(), cam2.to_raw()])
+    ssr = {framelib.PARAM_SSR_STRENGTH: 1.0}
+    c_lvl = engines["lvl"][0].cfg
+    c_hp, c_tex = engines["highpoly"][0].cfg, engines["textured"][0].cfg
+    cases = {   # label: (world, cfg, dp, extras)
+        "a sp=4": ("lvl", sharded.sharded_config(c_lvl, 4), 1,
+                   dict(plain=True, repeats=5)),
+        "b dp=2 sp=2": ("lvl", sharded.sharded_config(c_lvl, 2), 2,
+                        dict(cams=cams2, repeats=5)),
+        "c high-poly SSR": ("highpoly", sharded.sharded_config(
+            R(c_hp, enable_ssr=True), 4), 1, dict(params=ssr, repeats=3)),
+        "d textured": ("textured", sharded.sharded_config(c_tex, 4), 1,
+                       dict(repeats=3)),
+        "d fused_resolve": ("textured", sharded.sharded_config(
+            R(c_tex, fused_resolve=True), 4), 1, dict(repeats=3))}
+
+    def job(backend, labels):
+        worlds = {}
+        for k in labels:
+            w, cfg, dp, extra = cases[k]
+            worlds.setdefault(w, []).append(dict(
+                name=k, cfg=dataclasses.asdict(cfg), dp=dp, **extra))
+        return dict(device=dev.type, backend=backend, worlds=[dict(
+            world=engines[w][1], cfg=dataclasses.asdict(engines[w][0].cfg),
+            cases=cs) for w, cs in worlds.items()])
+
+    def single(label, cam_raw):
+        w, cfg, _, extra = cases[label]
+        eng = engines[w][0]
+        params = eng.params.clone()
+        for i, v in extra.get("params", {}).items():
+            params[i] = v
+        return framelib.render_frame(
+            eng._pack.scene, eng._packer.pool_for(cfg, dev), eng._pack.lights,
+            torch.as_tensor(cam_raw, device=dev), params, eng._ensure_env(),
+            cfg)
+
+    t0 = time.perf_counter()
+    gloo = launch(jobs.frame_job, 4, "gloo", dev.type, job("gloo", cases),
+                  timeout_s=600)
+    gloo_s = time.perf_counter() - t0
+    sums = dict.fromkeys(launches, 0)
+    for i, label in enumerate(cases):
+        w, cfg, dp, extra = cases[label]
+        rs = [r[i] for r in gloo]
+        assert rs[0]["name"] == label
+        assert len({r["digest"] for r in rs}) == 1, f"9 {label}: ranks differ"
+        out = rs[0]["out"]
+        run = {k: sum(r["launches"][k] for r in rs) for k in launches}
+        for k, n in run.items():
+            sums[k] += n
+        B = out["sdr"].shape[0]
+        assert out["sdr"].shape == (B, cfg.height, cfg.width, 3)
+        assert np.isfinite(out["hdr"]).all()
+        bars, moved = [], []
+        for c in range(B):
+            cam = extra.get("cams", [engines[w][0].camera.to_raw()])[c]
+            ref = single(label, cam)
+            # a band's plane constants fold in its first row and round
+            # otherwise than the frame's: on the 108k-triangle world a few
+            # edge pixels change hands (at most 1 in 10^4 allowed there)
+            moved.append(int((out["pick_id"][c]
+                              != ref.pick_id.cpu().numpy()).sum()))
+            assert moved[-1] <= (out["pick_id"][c].size // 10**4
+                                 if w == "highpoly" else 0), (label, moved)
+            bars.append(_sdr_bars(f"9 {label}", out["sdr"][c],
+                                  ref.sdr.cpu().numpy(), rs[0]["band_h"]))
+        if B == 1:
+            assert int(ref.sky_blocks) == int(out["sky_blocks"])
+        ids = len(np.unique(out["pick_id"]))
+        print(f"9{label}: {B}x{cfg.width}x{cfg.height} over {len(rs)} gloo "
+              f"ranks, band {rs[0]['band_h']} rows, {ids} ids; pick ids "
+              f"unlike the single-card frame's {moved}, (share > 1 LSB, > 16 LSB, "
+              f"interior rows within 1) {bars}; launches "
+              f"{run}; steady frame ms by rank "
+              f"{[round(r.get('frame_ms', nan), 3) for r in rs]}, of which "
+              f"collectives {[round(r.get('collective_ms', nan), 3) for r in rs]}"
+              f", each in call order (rank 0) "
+              f"{[round(x, 3) for x in rs[0].get('each_collective_ms', [])]} "
+              f"({smi})", flush=True)
+        if "plain" in rs[0]:
+            plain = rs[0]["plain"]
+            np.testing.assert_array_equal(out["pick_id"], plain["pick_id"])
+            res = verify.edge_aware_compare(out["sdr"][0], plain["sdr"][0],
+                                            pick=plain["pick_id"][0])
+            assert res["status"] == "pass", (label, res)
+            print(f"9{label}: kernel frame vs plain frame over the ranks: "
+                  f"pick ids equal, edge-aware compare {res}", flush=True)
+    expect = {"a sp=4": ("K1", "K2", "K3", "K7"),
+              "c high-poly SSR": ("K4", "K5"), "d textured": ("K7",),
+              "d fused_resolve": ("K6",)}
+    for i, label in enumerate(cases):
+        for k in expect.get(label, ()):
+            assert sum(r[i]["launches"][k] for r in gloo) > 0, (label, k)
+
+    # (e) nccl at world size 1: the single-card frame, bit for bit
+    cases["e nccl, one rank"] = ("lvl", sharded.sharded_config(c_lvl, 1), 1,
+                                 {})
+    t0 = time.perf_counter()
+    (e,), = launch(jobs.frame_job, 1, "nccl", dev.type,
+                   job("nccl", ["e nccl, one rank"]), timeout_s=600)
+    nccl_s = time.perf_counter() - t0
+    ref = single("e nccl, one rank", lvl.camera.to_raw())
+    for f in jobs.FIELDS:
+        want = getattr(ref, f).cpu().numpy()
+        got = e["out"][f][0] if f in ("sdr", "pick_id", "depth", "hdr") \
+            else e["out"][f]
+        assert np.array_equal(got, want), f"9e: {f} differs"
+    for k, n in e["launches"].items():
+        sums[k] += n
+    for k, n in sums.items():
+        launches[k] += n
+    assert all(sums[k] > 0 for k in launches), sums
+    print(f"9e nccl, one rank: demo.lvl 1920x1080 in one band equals the "
+          f"single-card frame bit for bit (sdr, pick ids, depth, hdr, every "
+          f"monitor); launches {e['launches']}", flush=True)
+    print(f"9 launches summed over the ranks: {sums}", flush=True)
+    print(f"9 phase: {time.perf_counter() - t_phase:.1f} s (gloo launch "
+          f"{gloo_s:.1f} s, nccl launch {nccl_s:.1f} s) ({smi})", flush=True)
+
+
 def main(argv: list[str]) -> int:
     import numpy as np
     import torch
@@ -644,6 +819,7 @@ def main(argv: list[str]) -> int:
     from tinyrenderer_tpu_torch.render.engine import Engine, RenderingAction
     from tinyrenderer_tpu_torch.config import RenderConfig
     from tinyrenderer_tpu_torch.scene import demo
+    from tinyrenderer_tpu_torch.parallel import jobs as pjobs
     from tinyrenderer_tpu_torch.utils import verify
 
     dev = torch.device("cuda")
@@ -863,34 +1039,12 @@ def main(argv: list[str]) -> int:
                 print(f"    {ms:.4f} ms  x{count}  {key}", flush=True)
         return out, frame_ms, per_frame, run, peak_mb
 
-    def shade_plain(tid, outf, outh, rec, gates, sky, campos, slights, P, D,
-                    irr):
-        return shading.shade_fused_ref(
-            tid, outf, outh, rec, gates, sky,
-            shading.pack_shading_consts(campos, slights, P, D, irr), P, D,
-            irr is not None)
-
     def kernel_vs_plain(label, render, chunk=16):
         """One frame through the kernels and one with every kernel swapped
         for its plain version: pick ids equal, edge_aware_compare passes."""
         fast = render()
         torch.cuda.synchronize()
-        with contextlib.ExitStack() as stack:
-            for mod, name, fn in (
-                    (raster, "rasterize_binned",
-                     lambda bins, th, tw: raster.rasterize_binned_ref(
-                         bins, th, tw, chunk=chunk)),
-                    (raster, "rasterize_stream", raster.rasterize_stream_ref),
-                    (raster, "rasterize_resolve_binned",
-                     lambda bins, table, th, tw:
-                     raster.rasterize_resolve_binned_ref(bins, table, th, tw,
-                                                         chunk=chunk)),
-                    (resolve, "select_eval", resolve.select_eval_ref),
-                    (resolve, "select_eval_stream",
-                     resolve.select_eval_stream_ref),
-                    (shading, "shade_deferred_fused", shade_plain),
-                    (sampling, "windowed_blend", sampling.windowed_blend_ref)):
-                stack.enter_context(_patched(mod, name, fn))
+        with pjobs.plain_versions(chunk):
             plain = render()
         torch.cuda.synchronize()
         assert torch.equal(fast.pick_id, plain.pick_id), f"{label}: pick ids differ"
@@ -1353,6 +1507,15 @@ def main(argv: list[str]) -> int:
                  RenderConfig(width=1280, height=720), 50,
                  ["--level", os.path.relpath(LEVEL, ROOT)], kernel_vs_plain,
                  reset_counts, add_counts)
+
+    # ---- phase 9: the multi-device frame ---------------------------------
+    eng3.cfg, eng5.cfg = cfg5b, c5
+    settle(eng3, "demo.lvl")
+    sharded_phase(dev, smi, {"lvl": (eng3, ("level", LEVEL)),
+                             "highpoly": (eng4, ("highpoly", 9)),
+                             "textured": (eng5, ("demo", dict(
+                                 n_cubes=24, textured_every=2)))},
+                  launches, verify)
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),

@@ -25,7 +25,8 @@ HOST_MODULES = ["tinyrenderer_tpu_torch." + m for m in (
     "editor.events", "editor.gizmo", "editor.controller", "editor.picking",
     "editor.session", "render.global_params", "render.reload",
     "utils.notify", "utils.containers", "utils.image_io", "viewer.server",
-    "viewer.__main__", "__main__")]
+    "viewer.__main__", "__main__", "parallel.sharded", "parallel.launch",
+    "parallel.__main__")]
 
 
 def _forbidden(name: str) -> bool:
@@ -42,7 +43,10 @@ def test_port_never_imports_jax():
             "tinyrenderer_tpu_torch.utils.verify",
             "tinyrenderer_tpu_torch.editor.session",
             "tinyrenderer_tpu_torch.viewer.server",
-            "tinyrenderer_tpu_torch.__main__"} <= set(PORT_MODULES)
+            "tinyrenderer_tpu_torch.__main__",
+            "tinyrenderer_tpu_torch.parallel.sharded",
+            "tinyrenderer_tpu_torch.parallel.launch",
+            "tinyrenderer_tpu_torch.parallel.__main__"} <= set(PORT_MODULES)
     assert "tinyrenderer_tpu_torch.shared" not in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
@@ -81,6 +85,18 @@ def test_host_surfaces_need_no_pil():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
+
+
+def test_spawned_rank_never_imports_jax():
+    """A rank that parallel.launch spawns from this test process (which has
+    imported jax) imports the port's whole frame to run its target and
+    holds neither jax nor any module of the JAX package."""
+    from tinyrenderer_tpu_torch.parallel import jobs
+    from tinyrenderer_tpu_torch.parallel.launch import launch
+    assert "jax" in sys.modules
+    loaded = launch(jobs.loaded_modules, 1, "gloo", "cpu", timeout_s=120)[0]
+    assert "tinyrenderer_tpu_torch" in loaded and "torch" in loaded
+    assert not [m for m in loaded if _forbidden(m)], loaded
 
 
 def test_chip_smoke_never_imports_jax():

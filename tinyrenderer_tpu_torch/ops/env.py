@@ -159,34 +159,41 @@ def _sky_at(env_cube: torch.Tensor, proj_inv: torch.Tensor,
 
 def skybox_colors(env_cube: torch.Tensor, proj_inv: torch.Tensor,
                   view_rot_inv: torch.Tensor, width: int, height: int,
-                  rgbe_win: torch.Tensor | None = None) -> torch.Tensor:
-    """(height, width, 3) skybox at every pixel (:func:`_sky_at`)."""
+                  rgbe_win: torch.Tensor | None = None, y0: float = 0,
+                  full_height: int = 0) -> torch.Tensor:
+    """(height, width, 3) skybox at every pixel (:func:`_sky_at`). With
+    ``full_height``, the band of rows [y0, y0 + height) of a frame that
+    tall (``y0`` may be fractional or negative: a band's sky strip reaches
+    past its rows)."""
     dev = env_cube.device
-    py, px = torch.meshgrid(torch.arange(height, dtype=F32, device=dev) + 0.5,
+    py, px = torch.meshgrid(torch.arange(height, dtype=F32, device=dev)
+                            + y0 + 0.5,
                             torch.arange(width, dtype=F32, device=dev) + 0.5,
                             indexing="ij")
-    return _sky_at(env_cube, proj_inv, view_rot_inv, px, py, width, height,
-                   rgbe_win)
+    return _sky_at(env_cube, proj_inv, view_rot_inv, px, py, width,
+                   full_height or height, rgbe_win)
 
 
 def skybox_colors_blocks(env_cube: torch.Tensor, proj_inv: torch.Tensor,
                          view_rot_inv: torch.Tensor, slots: torch.Tensor,
                          bh: int, bw: int, nbx: int, width: int, height: int,
-                         rgbe_win: torch.Tensor | None = None
-                         ) -> torch.Tensor:
+                         rgbe_win: torch.Tensor | None = None, y0: float = 0,
+                         full_height: int = 0) -> torch.Tensor:
     """:func:`skybox_colors` on a compacted block work list -> (K, bh, bw,
     3). ``slots`` (K,) are block indices (``compact.BlockPlan.slots``, -1
     empty, which gets 0) over the row-major (height // bh, width // bw)
-    block grid; each pixel's direction is closed-form in its block's
-    coordinates, so only the cube sample gathers."""
+    block grid, of the band of rows from ``y0`` of a ``full_height`` frame
+    where that is given; each pixel's direction is closed-form in its
+    block's coordinates, so only the cube sample gathers."""
     dev = env_cube.device
     b = slots.clamp(min=0)
     by = (b // nbx).to(F32)[:, None, None]
     bx = (b % nbx).to(F32)[:, None, None]
     xs = torch.arange(bw, dtype=F32, device=dev)[None, None, :]
     ys = torch.arange(bh, dtype=F32, device=dev)[None, :, None]
-    px, py = torch.broadcast_tensors(bx * bw + xs + 0.5, by * bh + ys + 0.5)
-    cols = _sky_at(env_cube, proj_inv, view_rot_inv, px, py, width, height,
-                   rgbe_win)
+    px, py = torch.broadcast_tensors(bx * bw + xs + 0.5,
+                                     by * bh + ys + y0 + 0.5)
+    cols = _sky_at(env_cube, proj_inv, view_rot_inv, px, py, width,
+                   full_height or height, rgbe_win)
     return torch.where((slots >= 0)[:, None, None, None], cols,
                        torch.zeros((), dtype=cols.dtype, device=dev))

@@ -219,8 +219,9 @@ def screen_space_reflections(hdr: torch.Tensor, depth: torch.Tensor,
                              thickness: torch.Tensor, strength: torch.Tensor,
                              num_steps: int = 256,
                              mask: torch.Tensor | None = None,
-                             roughness: torch.Tensor | None = None
-                             ) -> torch.Tensor:
+                             roughness: torch.Tensor | None = None,
+                             tap_hdr: torch.Tensor | None = None,
+                             y0: int | None = None) -> torch.Tensor:
     """Screen-space reflections over (H, W) maps: a coarse march of
     ``num_steps // 4`` taps of 4 steps each against the 4x4 max-reduced
     depth (reverse-Z: the nearest surface of the footprint, so no surface
@@ -228,9 +229,17 @@ def screen_space_reflections(hdr: torch.Tensor, depth: torch.Tensor,
     full-resolution depth inside the bracketed interval, a thickness test
     at the refined point, rejection of hits on or next to the pixel itself,
     and a blend by ``strength`` times the gloss ``(1 - roughness)^2``.
-    Strength 0 (the default parameter) passes the image through."""
+    Strength 0 (the default parameter) passes the image through.
+
+    Band mode (the sharded frame): the per-pixel inputs (hdr, position,
+    normal, mask, roughness) cover the band of rows from ``y0`` while the
+    taps read the gathered frame, ``depth`` and ``tap_hdr`` (H, W); the
+    projection is the frame's already, ``y0`` only places the band's
+    pixels for the self-hit test."""
     H, W = depth.shape
+    Bh = position.shape[0]
     dev = hdr.device
+    tap_hdr = hdr if tap_hdr is None else tap_hdr
     view = position - camera_pos
     vx, vy, vz = view[..., 0], view[..., 1], view[..., 2]
     n = sqrt(fma(vz, vz, fma(vx, vx, vy * vy))).clamp(min=1e-9)
@@ -247,12 +256,12 @@ def screen_space_reflections(hdr: torch.Tensor, depth: torch.Tensor,
     Hc, Wc = Hp // 4, Wp // 4
     dmax_flat, depth_flat = dmax.reshape(-1), depth.reshape(-1)
 
-    t_hit = torch.zeros((H, W), dtype=F32, device=dev)
-    found = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    t_hit = torch.zeros((Bh, W), dtype=F32, device=dev)
+    found = torch.zeros((Bh, W), dtype=torch.bool, device=dev)
     for i in range(max(num_steps // 4, 1)):
         t = step_len * 4.0 * (i + 1.0)
         u, v, ray_z = _project_ray_points(position, refl,
-                                          torch.full((H, W), t, device=dev),
+                                          torch.full((Bh, W), t, device=dev),
                                           view_proj)
         _, _, scene_z = _tap(dmax_flat, u, v, Hc, Wc)
         inside = (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
@@ -275,11 +284,11 @@ def screen_space_reflections(hdr: torch.Tensor, depth: torch.Tensor,
     hit = (found & inside & (scene_z > ray_z)
            & (scene_z - ray_z < thickness) & (scene_z > 0))
     px = torch.arange(W, dtype=I32, device=dev)[None, :]
-    py = torch.arange(H, dtype=I32, device=dev)[:, None]
+    py = torch.arange(Bh, dtype=I32, device=dev)[:, None] + (y0 or 0)
     hit = hit & (((xi - px).abs() + (yi - py).abs()) > 2)
     if mask is not None:
         hit = hit & mask
-    refl_color = hdr.reshape(-1, 3)[(yi * W + xi).long()]
+    refl_color = tap_hdr.reshape(-1, 3)[(yi * W + xi).long()]
     blend = strength * hit.to(F32)[..., None]
     if roughness is not None:
         gloss = (1.0 - roughness).clamp(0.0, 1.0)[..., None]

@@ -189,6 +189,25 @@ def triangle_setup(clip: torch.Tensor, tri_vidx: torch.Tensor,
                          z_ndc=torch.stack(zs, dim=1))
 
 
+def translate_setup_y(setup: TriangleSetup, y0: float) -> TriangleSetup:
+    """The setup of the band of rows from ``y0`` down: its planes evaluated
+    at band-local pixel centres (y' = y - y0) give the frame's values. The
+    planes are affine, so ``a_y * y0`` folds into each edge's and the
+    depth plane's constant, rounded once as the reference's compiled
+    function rounds it (``fma(a_y, y0, c)``); bbox and screen y shift by
+    ``-y0``."""
+    rows = setup.rows.clone()
+    y = rows.new_tensor(float(y0))
+    cols = [x + 2 for x in (_E0X, _E1X, _E2X, _ZX)]
+    rows[:, cols] = fma(rows[:, [c - 1 for c in cols]], y, rows[:, cols])
+    bbox = setup.bbox.clone()
+    bbox[:, 1::2] -= y
+    screen = setup.screen.clone()
+    screen[:, :, 1] -= y
+    return TriangleSetup(rows=rows, valid=setup.valid, bbox=bbox,
+                         screen=screen, inv_w=setup.inv_w, z_ndc=setup.z_ndc)
+
+
 def _tile_ranges(setup: TriangleSetup, width: int, height: int,
                  tile_h: int, tile_w: int, tiles_y: int, tiles_x: int):
     """Per-triangle covered tile range [tymin..tymax] x [txmin..txmax] + ok."""
@@ -684,17 +703,20 @@ def _race_stream(sbins: StreamBins, tiles_y: int, tiles_x: int, tile_h: int,
     x (c, P) i64, y (c, P) i64) -> (c, P) bool``, when given, decides in
     the edge tests' place which rows cover a pixel (x, y: the pixel's image
     coordinates)."""
-    Ls = sbins.rows.shape[0]
     n_tiles = tiles_y * tiles_x
     P = tile_h * tile_w
     mxu = P > _VPU_PLANES_MAX_P
     dev = sbins.rows.device
     walked, tile = walked_rows(sbins, n_tiles, kmax)
+    # only the walked rows can win: the stream's padding and the tails past
+    # a window are never evaluated
+    live = walked.nonzero().squeeze(1)
+    rows, tile = sbins.rows[live], tile[live]
     p = torch.arange(P, device=dev)
     best = torch.zeros(n_tiles * P, dtype=torch.int64, device=dev)
     chunk = max(1, (1 << 21) // P)           # ~2 M pixel evaluations a step
-    for c0 in range(0, Ls, chunk):
-        s = sbins.rows[c0:c0 + chunk, :, None]                    # (c, 16, 1)
+    for c0 in range(0, live.shape[0], chunk):
+        s = rows[c0:c0 + chunk, :, None]                          # (c, 16, 1)
         t = tile[c0:c0 + chunk, None]                             # (c, 1)
         x = (t % tiles_x) * tile_w + p % tile_w                   # (c, P)
         y = (t // tiles_x) * tile_h + p // tile_w
@@ -705,7 +727,7 @@ def _race_stream(sbins: StreamBins, tiles_y: int, tiles_x: int, tile_h: int,
 
         z = ev(_ZX)
         idf = s[:, _IDF]
-        covered = (idf > 0.0) & (z >= 0.0) & walked[c0:c0 + chunk, None]
+        covered = (idf > 0.0) & (z >= 0.0)
         if keep is None:
             covered = (covered & (ev(_E0X) >= 0.0) & (ev(_E1X) >= 0.0)
                        & (ev(_E2X) >= 0.0))

@@ -525,3 +525,40 @@ def resolve_gbuffer_from_attrs(r: ResolvedAttrs, tri_id: torch.Tensor,
                     torch.where(u, rec[..., 0:3], flat[..., 0:3]),
                     torch.where(use_tex, rec[..., 7], flat[..., 3]),
                     torch.where(use_tex, rec[..., 8], flat[..., 4]), needed)
+
+
+def resolve_attrs_onehot(tri_id: torch.Tensor, setup, tri_vidx: torch.Tensor,
+                         tri_instance: torch.Tensor, attrs: VertexAttrs,
+                         inst_object_id: torch.Tensor,
+                         inst_material: torch.Tensor,
+                         mat_record: torch.Tensor, mat_flat: torch.Tensor,
+                         bf16: bool = False) -> ResolvedAttrs:
+    """The two-pass resolve of the reference's unfused band: the full
+    table, then select + eval (K2), which takes each pixel's winner from
+    ``tri_id`` and so needs no bin ids. ``bf16`` only where the reference
+    resolves through its kernel (``use_pallas``); its kernel-free tiled
+    resolve is the float32 select."""
+    table = build_gbuffer_table(setup, tri_vidx, attrs, tri_instance,
+                                inst_object_id, inst_material, mat_record,
+                                mat_flat)
+    return resolve_attrs_pallas(tri_id, table, bf16=bf16)
+
+
+def resolve_gbuffer_onehot(tri_id: torch.Tensor, depth: torch.Tensor, setup,
+                           tri_vidx: torch.Tensor, tri_instance: torch.Tensor,
+                           attrs: VertexAttrs, inst_object_id: torch.Tensor,
+                           inst_material: torch.Tensor,
+                           mat_record: torch.Tensor, mat_flat: torch.Tensor,
+                           pool, texture_filter: str = "dithered",
+                           texture_scale: int = 1,
+                           tex_block_capacity: int = 0, bf16: bool = False,
+                           sample_textures: bool = True
+                           ) -> tuple[GBuffer, torch.Tensor]:
+    """:func:`resolve_attrs_onehot`, then the GBuffer assembly
+    (:func:`resolve_gbuffer_from_attrs`)."""
+    r = resolve_attrs_onehot(tri_id, setup, tri_vidx, tri_instance, attrs,
+                             inst_object_id, inst_material, mat_record,
+                             mat_flat, bf16=bf16)
+    return resolve_gbuffer_from_attrs(r, tri_id, depth, pool, texture_filter,
+                                      texture_scale, tex_block_capacity,
+                                      sample_textures)

@@ -314,15 +314,21 @@ def _nearest_up(img: torch.Tensor, scale: int, dims: tuple[int, int]):
 
 def gate_refined_visibility(vis_fn, vis_slot, pos: torch.Tensor, scale: int,
                             block_capacity: int,
-                            block_dims: tuple[int, int] | None = None
+                            block_dims: tuple[int, int] | None = None,
+                            halo_exchange=None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Binary per-light shadow gates at full resolution from a
     ``scale``-strided coarse pass plus exact re-evaluation of the blocks
     along a shadow edge, batched over all lights in one (light, block)
     work list of ``block_capacity`` slots (0 = every block).
 
-    pos: (H, W, 3). Returns ((L, H, W) f32 0/1 gates, channel-first as the
-    fused shading kernel reads them, and () i32 work items wanted)."""
+    pos: (H, W, 3). ``halo_exchange``: for a horizontal band of the frame,
+    a callable mapping the band's coarse gates lo (hl, wl, L) bool to the
+    neighbour bands' boundary rows (above (1, wl, L), below (1, wl, L));
+    they take the place of the edge-mode rows the frame's border repeats,
+    so that the band refines the blocks the whole frame refines at its
+    seams. Returns ((L, H, W) f32 0/1 gates, channel-first as the fused
+    shading kernel reads them, and () i32 work items wanted)."""
     H, W = pos.shape[:2]
     dev = pos.device
     zero = torch.zeros((), dtype=I32, device=dev)
@@ -340,8 +346,12 @@ def gate_refined_visibility(vis_fn, vis_slot, pos: torch.Tensor, scale: int,
         return post.resize_nearest(img, H, W)
 
     # a cell is on an edge when its gate differs from any 8-neighbour
+    rows, pad_y = lo, (1, 1)
+    if halo_exchange is not None:
+        above, below = halo_exchange(lo)
+        rows, pad_y = torch.cat([above.bool(), lo, below.bool()], 0), (0, 0)
     padded = torch.nn.functional.pad(
-        lo.movedim(-1, 0)[None].to(F32), (1, 1, 1, 1), mode="replicate"
+        rows.movedim(-1, 0)[None].to(F32), (1, 1) + pad_y, mode="replicate"
     )[0].movedim(0, -1) > 0.5
     edge = torch.zeros_like(lo)
     for dy in (0, 1, 2):
