@@ -15,8 +15,8 @@ runs, each phase asserting or letting its exception propagate:
    the kernels and again through the plain versions: equal pick ids and a
    passing edge-aware image comparison;
 4. the high-poly stream path: ``build_highpoly_world(9)`` (~108k
-   triangles) at 1920x1080 with 8x128 tiles. The engine runs until its
-   capacities stop growing; K4, K5 (main view) and K1 (the scatter-binned
+   triangles) at 1920x1080 with 8x128 tiles. The engine's first frame
+   settles its capacities; K4, K5 (main view) and K1 (the scatter-binned
    shadow view at its grown bin capacity, whose row count and heaviest
    tile are printed) are held against their plain versions at the
    captured shapes; ten engine frames are timed with the
@@ -25,7 +25,7 @@ runs, each phase asserting or letting its exception propagate:
    versions;
 5. the textured frame and the forward overlay: (a) the demo world with
    every second cube textured and its point light (a light billboard) at
-   1920x1080 runs until its capacities settle; K7 is held against its
+   1920x1080 settles its capacities; K7 is held against its
    plain version at both call sites (the compacted material sample and the
    overlay sprite) and K3 with its material plane against its plain
    version, at the captured shapes; ten engine frames are timed with the
@@ -71,7 +71,23 @@ runs, each phase asserting or letting its exception propagate:
    ``fused_resolve``; (e) one nccl rank renders demo.lvl bit-equal to the
    single-card frame. Each frame is held against the single-card frame of
    its ``sharded_config``; each rank counts its launches from 0 and times
-   its steady frame and its collectives with CUDA events.
+   its steady frame and its collectives with CUDA events;
+10. the frame loop (:func:`frame_loop_phase`): (a) the first frame handed
+   out is bit-equal to the 10th (the high-poly world under the default
+   config, bench.py's 500-object stress world at 2560x1440, a live
+   demo.lvl engine switched to ``performance_preset()``, to
+   ``reference_parity()``, to 1280x720 and to a ``bin_capacity`` of 8
+   that overflows, which must settle in more than one render), with the
+   capacities grown, the
+   renders the settle took and its time; (b) ten settled demo.lvl frames
+   under ``torch.cuda.set_sync_debug_mode("error")``; (c) 30 steady frames
+   of demo.lvl and of the textured world under SSR 0.5 with one
+   synchronize at the end and with one after every frame.
+
+Every engine frame is a settled one: ``Engine.render`` reads the monitors
+of a frame under a config it has not verified and renders it again while
+a capacity grew. The first frame of a fresh engine, or after a config
+change, may so launch each kernel more than once.
 
 A kernel's time is its share of a run of launches: N back-to-back calls
 of its wrapper between one pair of CUDA events, divided by N, the median
@@ -799,6 +815,163 @@ def sharded_phase(dev, smi: str, engines: dict, launches: dict,
           f"{gloo_s:.1f} s, nccl launch {nccl_s:.1f} s) ({smi})", flush=True)
 
 
+def frame_loop_phase(dev, smi: str, lvl_engine, textured_cfg, reset_counts,
+                     add_counts) -> None:
+    """Phase 10: the engine's monitor protocol. (a) The first frame is the
+    settled frame: fresh engines whose defaults overflow (the high-poly
+    world under the default config, bench.py's 500-object stress world at
+    2560x1440, and a live demo.lvl engine switched as the viewer switches
+    it: ``performance_preset()``, ``reference_parity()``, 1280x720, then
+    a ``bin_capacity`` of 8 that overflows and must grow before the frame
+    is handed out) hand out a first frame bit-equal, in pick ids and SDR,
+    to the 10th frame under the same camera. (b) Ten settled frames of demo.lvl with
+    its overlay (``lvl_engine``) run under
+    ``torch.cuda.set_sync_debug_mode("error")``; ``drain_monitors()`` then
+    leaves no fetch queued and the config as it was. (c) 30 steady frames
+    of demo.lvl and of the textured world under SSR 0.5, timed with one
+    synchronize at the end and with one after every frame (the loop that
+    read its monitors synchronously), in turns. Every run's launches are
+    counted from 0 and added to the kernels line."""
+    import torch
+    from tinyrenderer_tpu_torch.config import RenderConfig
+    from tinyrenderer_tpu_torch.render import frame as framelib
+    from tinyrenderer_tpu_torch.render.engine import Engine
+    from tinyrenderer_tpu_torch.scene import demo
+
+    t_phase = time.perf_counter()
+
+    def first_frame(label, eng, switch=None):
+        """``switch`` (the viewer's config change) on a live engine, or a
+        fresh engine; its first frame against its 10th."""
+        if switch is not None:
+            switch(eng)
+            eng._needs_pack = True      # as viewer/server.py applies a change
+            eng._atlas = None
+        cfg0 = eng.cfg
+        torch.cuda.synchronize()
+        reset_counts()
+        f0, t0 = eng.frame_index, time.perf_counter()
+        first = eng.run_frame(0.0)
+        torch.cuda.synchronize()
+        settle_ms = (time.perf_counter() - t0) * 1e3
+        renders, cfg1 = eng.frame_index - f0, eng.cfg
+        for _ in range(9):
+            tenth = eng.run_frame(0.0)
+        torch.cuda.synchronize()
+        run = add_counts()
+        moved = {f.name: (getattr(cfg0, f.name), getattr(cfg1, f.name))
+                 for f in dataclasses.fields(cfg0)
+                 if getattr(cfg0, f.name) != getattr(cfg1, f.name)}
+        monitored = {field for field, _ in Engine._MONITORS.values()}
+        grown = {k: v for k, v in moved.items() if k in monitored}
+        packed = {k: v for k, v in moved.items() if k not in monitored}
+        print(f"10a {label} {cfg1.width}x{cfg1.height}: the first frame took "
+              f"{renders} renders, {settle_ms:.3f} ms to the synchronize "
+              f"(card {smi}); capacities grown by the monitors {grown}; set "
+              f"by the pack {packed}; launches {run}", flush=True)
+        assert eng._settled and eng.cfg == cfg1, \
+            f"{label}: the capacities moved after the first frame"
+        assert torch.equal(first.pick_id, tenth.pick_id), \
+            f"{label}: the first frame's pick ids are not the 10th frame's"
+        assert torch.equal(first.sdr, tenth.sdr), \
+            f"{label}: the first frame's SDR is not the 10th frame's"
+        pick = first.pick_id
+        assert first.sdr.shape == (cfg1.height, cfg1.width, 3)
+        assert torch.isfinite(first.hdr).all() and len(torch.unique(pick)) > 2
+        return grown, renders
+
+    # (a) fresh engines whose default capacities overflow
+    hp, _ = first_frame("high-poly world, default RenderConfig", Engine.from_world(
+        demo.build_highpoly_world(9), camera=demo.build_demo_camera(1920, 1080),
+        cfg=RenderConfig(), device=dev))
+    assert "stream_capacity" in hp and "bin_capacity" in hp, hp
+    stress_cfg = RenderConfig(width=2560, height=1440, shadow_size=2048,
+                              max_instances=1024, max_vertices=16384,
+                              max_triangles=8192, max_materials=1024,
+                              bin_capacity=512, gate_block_h=8, gate_block_w=8)
+    stress = Engine.from_world(demo.build_stress_world(500),
+                               camera=demo.build_demo_camera(2560, 1440),
+                               cfg=stress_cfg, device=dev)
+    stress.set_param(framelib.PARAM_SHADOW_BIAS, 2e-3)   # bench.py's config 5
+    first_frame("stress world, 500 objects", stress)
+    del stress
+    live = Engine(cfg=RenderConfig(), device=dev, level_path=LEVEL)
+    live.run_frame(0.0)
+    for label, switch in (
+            ("demo.lvl, performance_preset()",
+             lambda e: setattr(e, "cfg", e.cfg.performance_preset())),
+            ("demo.lvl, reference_parity()",
+             lambda e: setattr(e, "cfg", e.cfg.reference_parity())),
+            ("demo.lvl, reference_parity() at 1280x720",
+             lambda e: e.resize(1280, 720))):
+        first_frame(label, live, switch)
+    # a switch whose config overflows: the settle re-armed on a settled
+    # engine grows the capacity before the frame is handed out
+    grown, renders = first_frame(
+        "demo.lvl, bin_capacity 8", live,
+        lambda e: setattr(e, "cfg", dataclasses.replace(e.cfg, bin_capacity=8)))
+    assert renders > 1 and grown["bin_capacity"][1] > 8, (renders, grown)
+    del live
+
+    # (b) steady frames that never wait for their monitors
+    eng = lvl_engine
+    assert eng.cfg.has_forward
+    eng.run_frame(0.0)
+    torch.cuda.synchronize()
+    assert eng._settled
+    cfg_b = eng.cfg
+    reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(10):
+            eng.run_frame(0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    queued = len(eng._overflow_inflight)
+    eng.drain_monitors()
+    run = add_counts()
+    assert not eng._overflow_inflight and eng.cfg == cfg_b
+    print(f"10b demo.lvl with its overlay: 10 settled frames under "
+          f"set_sync_debug_mode('error'), {queued} fetches still queued "
+          f"after them, drain_monitors() left none and the config as it "
+          f"was; launches {run}", flush=True)
+
+    # (c) the pipelined loop against a synchronize after every frame
+    def loop_ms(engine, sync_each, n=30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            engine.run_frame(0.0)
+            if sync_each:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    ssr = Engine.from_world(
+        demo.build_demo_world(n_cubes=24, textured_every=2),
+        camera=demo.build_demo_camera(1920, 1080),
+        cfg=dataclasses.replace(textured_cfg, enable_ssr=True), device=dev)
+    ssr.set_param(framelib.PARAM_SSR_STRENGTH, 0.5)
+    times = {}
+    for label, engine in (("demo.lvl with its overlay", eng),
+                          ("textured world, SSR 0.5", ssr)):
+        engine.run_frame(0.0)
+        assert engine._settled
+        reset_counts()
+        turns = [loop_ms(engine, s) for s in (False, True, True, False)]
+        run = add_counts()
+        one, each = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        times[label] = {"one_sync_ms": one, "sync_each_ms": each,
+                        "turns_ms": turns}
+        print(f"10c {label} 1920x1080, 30 steady frames (card {smi}): one "
+              f"synchronize at the end {one:.3f} ms a frame, a synchronize "
+              f"after every frame {each:.3f} ms a frame (turns "
+              f"{[round(t, 3) for t in turns]}: end, each, each, end); "
+              f"launches {run}", flush=True)
+    print("10c frame loop ms: " + json.dumps({"card": smi, **times}))
+    print(f"10 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main(argv: list[str]) -> int:
     import numpy as np
     import torch
@@ -1058,15 +1231,18 @@ def main(argv: list[str]) -> int:
         return fast
 
     def settle(engine, label):
-        """Engine frames until the capacities stop growing (at most 8):
-        (last output, frames run)."""
-        for i in range(8):
-            cfg_before, atlas_frame = engine.cfg, engine._atlas is None
-            out = engine.run_frame(0.0)
-            torch.cuda.synchronize()
-            if engine.cfg == cfg_before and not atlas_frame:
-                return out, i + 1
-        raise AssertionError(f"{label}: capacities did not settle: {engine.cfg}")
+        """One engine frame, which render() hands out only once the
+        capacities held (it renders again while one grew), then one more
+        that must leave them as they are: (last output, renders of the
+        first frame)."""
+        f0 = engine.frame_index
+        engine.run_frame(0.0)
+        renders, cfg1 = engine.frame_index - f0, engine.cfg
+        out = engine.run_frame(0.0)
+        torch.cuda.synchronize()
+        assert engine._settled and engine.cfg == cfg1, \
+            f"{label}: capacities did not settle: {engine.cfg}"
+        return out, renders
 
     # ---- phase 2: the engine path, 10 frames at 1920x1080 ---------------
     eng = Engine.from_world(
@@ -1075,6 +1251,7 @@ def main(argv: list[str]) -> int:
         device=dev)
     eng.update()
     eng._ensure_env()
+    settle(eng, "demo world")
     assert framelib.use_fused_shading(eng.cfg), "fused path not taken"
     out, frame_ms, per_frame, run, peak_mb = timed_frames(
         eng, ("K1", "K2", "K3"), "demo world, directional light (fused)")
@@ -1110,18 +1287,13 @@ def main(argv: list[str]) -> int:
 
     shadow_k = lambda bins, th, tw: f"K1 shadow K={bins.rows.shape[2]}"  # noqa: E731
     with capture(raster, "rasterize_binned", shadow_k):
-        for i in range(8):            # run until the capacities settle
-            cfg_before, atlas_frame = eng4.cfg, eng4._atlas is None
-            k1 = raster.K1_LAUNCHES
-            out4 = eng4.run_frame(0.0)
-            torch.cuda.synchronize()
-            if atlas_frame:
-                assert raster.K1_LAUNCHES - k1 == eng4.cfg.num_shadow_views, \
-                    raster.K1_LAUNCHES - k1
-            if eng4.cfg == cfg_before and not atlas_frame:
-                break
-        else:
-            raise AssertionError(f"high-poly capacities did not settle: {eng4.cfg}")
+        k1 = raster.K1_LAUNCHES
+        out4, renders4 = settle(eng4, "high-poly world")
+        # the atlas views only, a whole atlas a render that drew one: the
+        # main view takes the stream raster
+        atlas_k1 = raster.K1_LAUNCHES - k1
+        assert atlas_k1 > 0 and atlas_k1 % eng4.cfg.num_shadow_views == 0, \
+            atlas_k1
     c4 = eng4.cfg
     assert framelib.use_fused_shading(c4) and c4.stream_raster
     tris = eng4._pack.counts["triangles"]
@@ -1132,7 +1304,7 @@ def main(argv: list[str]) -> int:
     settled = {f: getattr(c4, f) for f in (
         "stream_capacity", "bin_capacity", "bin_big_capacity",
         "shadow_bin_capacity", "shadow_block_capacity", "max_triangles")}
-    print(f"high-poly world: {tris} triangles, settled after {i + 1} frames: "
+    print(f"high-poly world: {tris} triangles, settled in {renders4} renders: "
           f"{settled}, stream pairs {int(out4.stream_overflow)}, max tile "
           f"{int(out4.bin_overflow)}, bigs {int(out4.big_overflow)}", flush=True)
 
@@ -1208,7 +1380,7 @@ def main(argv: list[str]) -> int:
     assert (c5.num_point_lights, c5.num_directional_lights) == (1, 1)
     tex_blocks, fwd_tiles = out5.tex_overflow.tolist()
     assert 0 < tex_blocks and 0 < fwd_tiles <= c5.fwd_tile_capacity
-    print(f"textured demo world 1920x1080: settled after {n_frames} frames: "
+    print(f"textured demo world 1920x1080: settled in {n_frames} renders: "
           f"tex_block_capacity {c5.tex_block_capacity} ({tex_blocks} textured "
           f"blocks wanted of {eng5._tex_block_count()}), fwd_tile_capacity "
           f"{c5.fwd_tile_capacity} ({fwd_tiles} overlay tiles)", flush=True)
@@ -1516,6 +1688,9 @@ def main(argv: list[str]) -> int:
                              "textured": (eng5, ("demo", dict(
                                  n_cubes=24, textured_every=2)))},
                   launches, verify)
+
+    # ---- phase 10: the frame loop -----------------------------------------
+    frame_loop_phase(dev, smi, eng3, c5, reset_counts, add_counts)
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),

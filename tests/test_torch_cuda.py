@@ -581,3 +581,56 @@ def test_library_rebuild_swap_and_failed_build(cuda, tmp_path):
         kernels.CSRC, kernels.BUILD_DIR = csrc0, build0
         res = eng.recompile_kernels()
     assert res.ok and kernels._lib_path == path0
+
+
+@pytest.mark.cuda
+def test_cuda_fetch_on_the_card(cuda):
+    """A CUDA fetch goes through pinned memory without synchronizing; its
+    result is the tensor's value, also for fetches whose pinned blocks
+    were handed out again after an earlier fetch was read."""
+    from tinyrenderer_tpu_torch.utils import async_fetch
+    vals = [torch.arange(3, dtype=torch.int32, device=cuda) + 10 * i
+            for i in range(6)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fetches = [async_fetch.submit_fetch(v) for v in vals[:3]]
+        [f.done() for f in fetches]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fetches[0]._host.is_pinned()
+    for i, f in enumerate(fetches):
+        assert not f.cancelled()
+        assert f.result().tolist() == [10 * i, 10 * i + 1, 10 * i + 2]
+        assert f.done()
+    fetches = [async_fetch.submit_fetch(v) for v in vals[3:]]
+    for i, f in enumerate(fetches, 3):
+        assert f.result().tolist() == [10 * i, 10 * i + 1, 10 * i + 2]
+
+
+@pytest.mark.cuda
+def test_engine_steady_frames_do_not_synchronize(cuda):
+    """A settled CUDA engine's frames (demo.lvl, its overlay, 256x128) run
+    under set_sync_debug_mode('error'); the first frame settled."""
+    import os
+    from tinyrenderer_tpu_torch.config import RenderConfig
+    from tinyrenderer_tpu_torch.render.engine import Engine
+    level = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                         "levels", "demo.lvl")
+    eng = Engine(cfg=RenderConfig(width=256, height=128, bin_capacity=16,
+                                  env_size=32, shadow_size=256),
+                 device=cuda, level_path=level)
+    first = eng.run_frame(0.0)
+    assert eng._settled and eng.cfg.bin_capacity > 16
+    cfg = eng.cfg
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            out = eng.run_frame(0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eng.drain_monitors()
+    assert not eng._overflow_inflight and eng.cfg == cfg
+    assert torch.equal(first.pick_id, out.pick_id)
+    assert torch.equal(first.sdr, out.sdr)

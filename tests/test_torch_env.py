@@ -234,13 +234,14 @@ def test_block_sky_frame_equals_full_rate_sky(fused):
 
 def test_engine_grows_sky_block_capacity():
     """The skyblk monitor: a capacity below the background blocks grows in
-    256-block steps with 12.5% headroom, and the next frame is exact."""
+    256-block steps with 12.5% headroom before the first frame is handed
+    out, so that frame is already exact."""
     te = _port_engine(dataclasses.replace(CFG, sky_block_capacity=1))
     out = te.run_frame()
     wanted = int(out.sky_blocks)
     assert wanted > 1 and te.cfg.sky_block_capacity == 256
     dense = _port_engine(dataclasses.replace(CFG, sky_scale=1)).run_frame()
-    assert not torch.equal(out.sdr, dense.sdr)      # blocks were dropped
+    assert torch.equal(out.sdr, dense.sdr)    # no block was dropped
     assert torch.equal(te.run_frame().sdr, dense.sdr)
     te.cfg = dataclasses.replace(te.cfg, width=1920, height=1080)
     te._apply_monitor_values(("skyblk",), [1000])

@@ -222,19 +222,24 @@ def test_engine_grows_texture_capacities():
 
 
 def test_engine_grows_overflowed_capacities():
-    """The per-frame monitor readback grows an overflowed capacity to the
-    next power of two for the next frame (no settle re-render). As in the
-    reference engine, a growth from the atlas monitors drops the rest of
-    that frame's monitors; the next frame reports them again."""
+    """An overflowed capacity grows to the next power of two before the
+    first frame is handed out: render() reads the monitors of an unsettled
+    frame and renders again while a capacity grew. As in the reference
+    engine, a growth from the atlas monitors drops the rest of that
+    render's monitors; the next render reports them again."""
     cfg = dataclasses.replace(CFG, bin_capacity=4, shadow_bin_capacity=8)
     te = TEngine.from_world(
         demo.build_demo_world(n_cubes=9, with_point_light=False),
         camera=demo.build_demo_camera(CFG.width, CFG.height), cfg=cfg,
         device="cpu")
-    te.run_frame(0.0)
-    assert te.cfg.shadow_bin_capacity > 8 and te._atlas is None
-    assert te.cfg.bin_capacity == 4
     out = te.run_frame(0.0)
+    assert te._settled and te.frame_index == 3      # two growths, two renders
+    assert te.cfg.shadow_bin_capacity > 8
     wanted = int(out.bin_overflow)
     assert wanted > 4
     assert te.cfg.bin_capacity == 1 << (wanted - 1).bit_length()
+    cfg1 = te.cfg
+    again = te.run_frame(0.0)
+    assert te.cfg == cfg1
+    assert torch.equal(out.pick_id, again.pick_id)
+    assert torch.equal(out.sdr, again.sdr)

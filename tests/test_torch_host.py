@@ -320,3 +320,37 @@ def test_capacity_growth_pushes_the_reference_warning():
     mine = [(t.message, t.level) for t in te.notifier.history()]
     assert mine == [(t.message, t.level) for t in je.notifier.history()]
     assert mine[0] in toasts
+
+
+def test_orbit_writes_frames_and_a_gif(tmp_path, monkeypatch):
+    """The port's turntable (tools/orbit.py): two settled frames of the
+    demo world at 64x32 on the CPU, written as PNGs and as one looping GIF
+    that PIL decodes to the frames through the encoder's 3-3-2 palette;
+    its CLI refuses to render without a CUDA device unless asked for the
+    CPU."""
+    from tinyrenderer_tpu_torch.tools import orbit
+    cfg = RenderConfig(width=64, height=32, tile_h=16, tile_w=64,
+                       shadow_size=64, shadow_tile=64, env_size=16,
+                       irradiance_size=8)
+    eng = Engine.from_world(demo.build_demo_world(n_cubes=6),
+                            camera=demo.build_demo_camera(64, 32), cfg=cfg,
+                            device="cpu")
+    frames = orbit.orbit(eng, 2, str(tmp_path), gif=True)
+    assert eng._settled and eng.frame_index >= 2
+    assert len(frames) == 2 and frames[0].shape == (32, 64, 3)
+    assert not np.array_equal(frames[0], frames[1])      # the camera moved
+    pal = image_io._palette_332()
+    with Image.open(tmp_path / "orbit.gif") as gif:
+        assert gif.n_frames == 2 and gif.info.get("loop") == 0
+        for k, f in enumerate(frames):
+            gif.seek(k)
+            idx = ((f[..., 0] >> 5) << 5) | ((f[..., 1] >> 5) << 2) | (f[..., 2] >> 6)
+            assert np.array_equal(np.asarray(gif.convert("RGB")), pal[idx])
+    for k, f in enumerate(frames):
+        with Image.open(tmp_path / f"frame_{k:04d}.png") as png:
+            assert np.array_equal(np.asarray(png.convert("RGB")), f)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        orbit.main(["--frames", "1", "--out", str(tmp_path / "none")])
+    assert "no CUDA device" in str(e.value.code)
+    assert not (tmp_path / "none").exists()

@@ -26,7 +26,7 @@ HOST_MODULES = ["tinyrenderer_tpu_torch." + m for m in (
     "editor.session", "render.global_params", "render.reload",
     "utils.notify", "utils.containers", "utils.image_io", "viewer.server",
     "viewer.__main__", "__main__", "parallel.sharded", "parallel.launch",
-    "parallel.__main__")]
+    "parallel.__main__", "tools.orbit", "utils.async_fetch")]
 
 
 def _forbidden(name: str) -> bool:
@@ -46,7 +46,9 @@ def test_port_never_imports_jax():
             "tinyrenderer_tpu_torch.__main__",
             "tinyrenderer_tpu_torch.parallel.sharded",
             "tinyrenderer_tpu_torch.parallel.launch",
-            "tinyrenderer_tpu_torch.parallel.__main__"} <= set(PORT_MODULES)
+            "tinyrenderer_tpu_torch.parallel.__main__",
+            "tinyrenderer_tpu_torch.utils.async_fetch",
+            "tinyrenderer_tpu_torch.tools.orbit"} <= set(PORT_MODULES)
     assert "tinyrenderer_tpu_torch.shared" not in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
@@ -60,9 +62,9 @@ def test_port_never_imports_jax():
 
 
 def test_host_surfaces_need_no_pil():
-    """The editor, its host surfaces and both entry points are walked, and
-    they import without PIL: encoding a PNG, saving one and serving the
-    viewer's page need none (the card's machine has no PIL)."""
+    """The editor, its host surfaces and the entry points are walked, and
+    they import without PIL: encoding a PNG or a GIF, saving one and
+    serving the viewer's page need none (the card's machine has no PIL)."""
     assert set(HOST_MODULES) <= set(PORT_MODULES)
     code = ("import builtins, importlib, sys\n"
             "real = builtins.__import__\n"
@@ -81,6 +83,7 @@ def test_host_surfaces_need_no_pil():
             "assert image_io.encode_png(img)[:4] == b'\\x89PNG'\n"
             "p = os.path.join(tempfile.mkdtemp(), 'a.png')\n"
             "image_io.save_png(p, img)\n"
+            "assert image_io.encode_gif([img, img])[:6] == b'GIF89a'\n"
             "assert 'PIL' not in sys.modules\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)

@@ -115,13 +115,11 @@ def _engine(cfg, **world):
 
 
 def _settled(eng):
-    """Frames until the capacities stop growing: the last one."""
-    for _ in range(8):
-        before, atlas_frame = eng.cfg, eng._atlas is None
-        out = eng.run_frame(0.0)
-        if eng.cfg == before and not atlas_frame:
-            return out
-    raise AssertionError(f"capacities did not settle: {eng.cfg}")
+    """The next frame: render() hands out only a frame whose capacities
+    held, whatever changed before it."""
+    out = eng.run_frame(0.0)
+    assert eng._settled, f"capacities did not settle: {eng.cfg}"
+    return out
 
 
 def _noise_textured_engine(cfg, png):

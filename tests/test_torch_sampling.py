@@ -171,6 +171,18 @@ def test_mip_level_from_uv_matches_jax():
     assert (pick(tl) != pick(jl)).mean() == 0.0
 
 
+@pytest.mark.parametrize("phase", [0, 1, 2])
+def test_bayer_threshold_matches_jax(phase):
+    """The dither thresholds, computed on the tensor's device with no
+    upload, equal the JAX package's tiled table bit for bit, at a size
+    that 4 divides in neither direction."""
+    j = np.asarray(jsampling._bayer_threshold((37, 131), phase))
+    t = tsampling._bayer_threshold((37, 131), torch.device("cpu"), phase)
+    assert t.dtype == torch.float32
+    np.testing.assert_array_equal(t.numpy().view(np.uint32),
+                                  j.astype(np.float32).view(np.uint32))
+
+
 @pytest.mark.parametrize("capacity", [3, 0, 8])   # compacted, dense, dense
 def test_sample_pool_compacted_matches_jax(capacity):
     j, t, _ = _pools(True, False)

@@ -120,7 +120,7 @@ def _screen_diffs(v: torch.Tensor, p: torch.Tensor, size: int,
     a, b = swapped
     mul = torch.stack([v[:, i] for i, _ in pairs] + [-v[:, b]], 1)
     add = torch.stack([-p[:, j] for _, j in pairs] + [p[:, a]], 1)
-    return fma(mul, v.new_tensor(float(size)), add)
+    return fma(mul, v.new_full((), float(size)), add)
 
 
 def triangle_setup(clip: torch.Tensor, tri_vidx: torch.Tensor,

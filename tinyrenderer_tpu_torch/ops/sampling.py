@@ -19,6 +19,7 @@ Cubemaps are (6, S, S, C) with the face order +X, -X, +Y, -Y, +Z, -Z.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -319,18 +320,26 @@ def _blend4(u8: bool, t00, t10, t01, t11, fx, fy) -> torch.Tensor:
     return lerp(lerp(t00, t10, fx), lerp(t01, t11, fx), fy)
 
 
-_BAYER4 = np.array([[0, 8, 2, 10], [12, 4, 14, 6],
-                    [3, 11, 1, 9], [15, 7, 13, 5]], np.float32) / 16.0 \
-    + 1.0 / 32.0
-
-
+@functools.lru_cache(maxsize=8)
 def _bayer_threshold(shape2d: tuple, device, phase: int = 0) -> torch.Tensor:
     """(h, w) tiled 4x4 Bayer thresholds in (0, 1); ``phase`` rotates the
-    pattern so independent decisions (mip level, u, v) decorrelate."""
+    pattern so independent decisions (mip level, u, v) decorrelate.
+    Cached per shape, device and phase (a frame asks for the same few up
+    to three times a sample site; callers only read it). Computed where it
+    is used, with no upload: entry k of the reference's
+    flattened table rolled by ``5 * phase`` is the 4x4 Bayer value of
+    (i, j) = divmod((k - 5 * phase) % 16, 4), 4 M2(i & 1, j & 1) +
+    M2(i >> 1, j >> 1) with M2(a, b) = 2 (a ^ b) + a, over 16, plus 1/32."""
     h, w = shape2d
-    bayer = np.roll(_BAYER4.reshape(-1), 5 * phase).reshape(4, 4)
-    full = np.tile(bayer, ((h + 3) // 4, (w + 3) // 4))[:h, :w]
-    return torch.as_tensor(np.ascontiguousarray(full), device=device)
+    ys = torch.arange(h, dtype=torch.int32, device=device)[:, None] % 4
+    xs = torch.arange(w, dtype=torch.int32, device=device)[None, :] % 4
+    k = (ys * 4 + xs - 5 * phase) % 16
+    i, j = k >> 2, k & 3
+
+    def m2(a, b):
+        return 2 * (a ^ b) + a
+    m = 4 * m2(i & 1, j & 1) + m2(i >> 1, j >> 1)
+    return m.to(torch.float32) / 16.0 + 1.0 / 32.0
 
 
 def _sample_stochastic_dynamic_level(pool: TexturePoolGPU, tex: torch.Tensor,

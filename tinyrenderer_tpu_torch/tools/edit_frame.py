@@ -6,7 +6,9 @@ shadow view before the steady work. This tool settles
 then times ``--frames`` edit frames (the atlas dropped before each) and as
 many steady frames, CUDA events around ``Engine.run_frame``, and prints the
 medians. It imports the port from ``--root`` (default: the current
-directory), so two checkouts can be timed one after the other on one card::
+directory), so two checkouts can be timed one after the other on one card
+(each must settle its capacities in its first frame, as ``Engine.render``
+does)::
 
     python3 tinyrenderer_tpu_torch/tools/edit_frame.py [--root DIR] [--frames N]
 """
@@ -43,8 +45,7 @@ def main(argv: list[str]) -> int:
         cfg=RenderConfig(width=1920, height=1080, max_instances=64,
                          max_vertices=131072, max_triangles=131072,
                          bin_capacity=1024, tile_h=8))
-    for _ in range(8):                       # the capacities settle in three
-        eng.run_frame(0.0)
+    eng.run_frame(0.0)                       # settles the capacities
 
     def frame_ms(edit: bool) -> float:
         if edit:

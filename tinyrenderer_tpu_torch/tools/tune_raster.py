@@ -109,9 +109,9 @@ def _tune_k7(torch, chip_smoke, kernels, dev, out_dir, baseline) -> int:
         camera=demo.build_demo_camera(1920, 1080), cfg=RenderConfig(),
         device=dev)
     with chip_smoke._patched(sampling, "windowed_blend", spy):
-        for _ in range(6):                 # the capacities settle in three
-            calls.clear()
-            eng.run_frame(0.0)
+        eng.run_frame(0.0)                 # settles the capacities
+        calls.clear()
+        eng.run_frame(0.0)                 # one settled frame's taps
     torch.cuda.synchronize()
 
     libs = dict(load())
@@ -214,9 +214,9 @@ def main(argv: list[str]) -> int:
             cfg=RenderConfig(width=1920, height=1080, max_instances=64,
                              max_vertices=131072, max_triangles=131072,
                              bin_capacity=1024, tile_h=8))
-        for _ in range(6):                 # the capacities settle in three
-            eng._atlas = None
-            eng.run_frame(0.0)
+        eng.run_frame(0.0)                 # settles the capacities
+        eng._atlas = None                  # the settled atlas, captured last
+        eng.run_frame(0.0)
     torch.cuda.synchronize()
     settled = (f"K1 {eng.cfg.shadow_tile}x{eng.cfg.shadow_tile} tiles, "
                f"K={eng.cfg.shadow_bin_capacity}")

@@ -59,3 +59,89 @@ def save_png(path: str, img: np.ndarray) -> None:
 
 def save_pfm_like_npy(path: str, img: np.ndarray) -> None:
     np.save(path, np.asarray(img, np.float32))
+
+
+def _palette_332() -> np.ndarray:
+    """(256, 3) uint8: the centres of 3-3-2 bit RGB cells."""
+    i = np.arange(256)
+    r, g, b = i >> 5, (i >> 2) & 7, i & 3
+    return np.stack([r * 255 // 7, g * 255 // 7, b * 255 // 3],
+                    1).astype(np.uint8)
+
+
+def _lzw(indices: np.ndarray) -> bytes:
+    """GIF LZW of 8-bit color indices (minimum code size 8): codes packed
+    least significant bit first, the width growing from 9 to 12 bits and a
+    clear code when the table is full."""
+    clear, eoi = 256, 257
+    out = bytearray()
+    acc = nbits = 0
+
+    def emit(code: int, width: int) -> None:
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    table: dict = {}
+    width, nxt = 9, eoi + 1
+    emit(clear, width)
+    data = indices.tobytes()
+    w = data[0]
+    for c in data[1:]:
+        key = (w << 8) | c
+        code = table.get(key)
+        if code is not None:
+            w = code
+            continue
+        emit(w, width)
+        if nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+            if nxt > (1 << width):
+                width += 1
+        else:
+            emit(clear, width)
+            table.clear()
+            width, nxt = 9, eoi + 1
+        w = c
+    emit(w, width)
+    emit(eoi, width)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def encode_gif(frames: list, delay_ms: int = 83) -> bytes:
+    """Frames of (H, W, 3) uint8 (or float in [0, 1]), all one size, to an
+    animated GIF that loops: one global 3-3-2 bit palette, no dithering,
+    ``delay_ms`` a frame (in the format's hundredths of a second). The
+    standard library and numpy only: the card's machine has no PIL."""
+    imgs = [_as_u8(f)[..., :3] for f in frames]
+    if not imgs:
+        raise ValueError("a GIF needs at least one frame")
+    h, w, _ = imgs[0].shape
+    if any(im.shape != imgs[0].shape for im in imgs):
+        raise ValueError("every frame of a GIF must have the same size")
+    head = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0),
+            _palette_332().tobytes(),
+            b"\x21\xFF\x0BNETSCAPE2.0\x03\x01\x00\x00\x00"]   # loop forever
+    body = []
+    delay = max(1, round(delay_ms / 10))
+    for im in imgs:
+        idx = ((im[..., 0] >> 5) << 5) | ((im[..., 1] >> 5) << 2) | (im[..., 2] >> 6)
+        data = _lzw(np.ascontiguousarray(idx, np.uint8))
+        blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                          for i in range(0, len(data), 255))
+        body += [b"\x21\xF9\x04\x04" + struct.pack("<H", delay) + b"\x00\x00",
+                 b"\x2C" + struct.pack("<HHHHB", 0, 0, w, h, 0),
+                 b"\x08" + blocks + b"\x00"]
+    return b"".join(head + body) + b"\x3B"
+
+
+def save_gif(path: str, frames: list, delay_ms: int = 83) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_gif(frames, delay_ms))
