@@ -32,7 +32,7 @@ runs, each phase asserting or letting its exception propagate:
    launch counters reset just before; one frame is rendered through the
    kernels and again through the plain versions; (b) ``levels/demo.lvl``
    with its billboard and (c) its forward-only frame, each kernels
-   against plain versions;
+   against plain versions and as ten timed engine frames;
 6. the unfused deferred chain on the textured world of phase 5 at
    1920x1080, each configuration settled, timed over ten engine frames and
    rendered through the kernels and through the plain versions: (a)
@@ -80,9 +80,18 @@ runs, each phase asserting or letting its exception propagate:
    that overflows, which must settle in more than one render), with the
    capacities grown, the
    renders the settle took and its time; (b) ten settled demo.lvl frames
-   under ``torch.cuda.set_sync_debug_mode("error")``; (c) 30 steady frames
+   under ``torch.cuda.set_sync_debug_mode("error")``, as every engine run
+   timed in the phases above had after its timed frames (the 19
+   configurations of PERF.md section 5, demo.lvl with its overlay and
+   forward-only included); (c) 30 steady frames
    of demo.lvl and of the textured world under SSR 0.5 with one
-   synchronize at the end and with one after every frame.
+   synchronize at the end and with one after every frame;
+11. the single-card entry and the offline tools
+   (:func:`entry_tools_phase`): (a) ``entry("cuda")``'s frame function
+   through the kernels and through the plain versions, timed; (b) the
+   default-IBL generator at full size against the checked-in asset,
+   timed; (c) the fidelity report on demo.lvl and on the textured world
+   at 1920x1080 for the default and the two presets, timed.
 
 Every engine frame is a settled one: ``Engine.render`` reads the monitors
 of a frame under a config it has not verified and renders it again while
@@ -816,7 +825,7 @@ def sharded_phase(dev, smi: str, engines: dict, launches: dict,
 
 
 def frame_loop_phase(dev, smi: str, lvl_engine, textured_cfg, reset_counts,
-                     add_counts) -> None:
+                     add_counts, sync_free) -> None:
     """Phase 10: the engine's monitor protocol. (a) The first frame is the
     settled frame: fresh engines whose defaults overflow (the high-poly
     world under the default config, bench.py's 500-object stress world at
@@ -827,7 +836,9 @@ def frame_loop_phase(dev, smi: str, lvl_engine, textured_cfg, reset_counts,
     to the 10th frame under the same camera. (b) Ten settled frames of demo.lvl with
     its overlay (``lvl_engine``) run under
     ``torch.cuda.set_sync_debug_mode("error")``; ``drain_monitors()`` then
-    leaves no fetch queued and the config as it was. (c) 30 steady frames
+    leaves no fetch queued and the config as it was (``sync_free``, which
+    every engine run that the phases above timed went through as well:
+    the 19 configurations of PERF.md section 5). (c) 30 steady frames
     of demo.lvl and of the textured world under SSR 0.5, timed with one
     synchronize at the end and with one after every frame (the loop that
     read its monitors synchronously), in turns. Every run's launches are
@@ -913,28 +924,22 @@ def frame_loop_phase(dev, smi: str, lvl_engine, textured_cfg, reset_counts,
     assert renders > 1 and grown["bin_capacity"][1] > 8, (renders, grown)
     del live
 
-    # (b) steady frames that never wait for their monitors
+    # (b) steady frames that never wait for their monitors: demo.lvl with
+    # its overlay here; every configuration timed by the phases above went
+    # through the same check after its timed frames (``sync_free``)
     eng = lvl_engine
     assert eng.cfg.has_forward
     eng.run_frame(0.0)
     torch.cuda.synchronize()
-    assert eng._settled
-    cfg_b = eng.cfg
-    reset_counts()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for _ in range(10):
-            eng.run_frame(0.0)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    queued = len(eng._overflow_inflight)
-    eng.drain_monitors()
-    run = add_counts()
-    assert not eng._overflow_inflight and eng.cfg == cfg_b
+    queued = sync_free(eng, "demo.lvl with its overlay (10b)")
     print(f"10b demo.lvl with its overlay: 10 settled frames under "
           f"set_sync_debug_mode('error'), {queued} fetches still queued "
           f"after them, drain_monitors() left none and the config as it "
-          f"was; launches {run}", flush=True)
+          f"was", flush=True)
+    runs = sync_free.runs
+    print(f"10b {len(runs)} runs of 10 settled frames under "
+          f"set_sync_debug_mode('error') passed: {runs}", flush=True)
+    assert len(set(runs)) >= 20, runs
 
     # (c) the pipelined loop against a synchronize after every frame
     def loop_ms(engine, sync_each, n=30):
@@ -970,6 +975,91 @@ def frame_loop_phase(dev, smi: str, lvl_engine, textured_cfg, reset_counts,
               f"launches {run}", flush=True)
     print("10c frame loop ms: " + json.dumps({"card": smi, **times}))
     print(f"10 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def entry_tools_phase(dev, smi: str, reset_counts, add_counts,
+                      kernel_vs_plain) -> None:
+    """Phase 11: the single-card entry and the two offline tools. (a)
+    ``entry("cuda")``'s ``fn(*args)`` (256x128, the demo world under the
+    default camera, the shadow atlas inline) through the kernels and
+    through the plain versions, and its ms (CUDA events, median of 9);
+    (b) the default-IBL generator at its full size (cube 256, irradiance
+    64) into a temporary file, within one float16 step of the checked-in
+    asset, and its ms; (c) the fidelity report on demo.lvl and on the
+    textured world at 1920x1080 (``--only default,performance_preset,
+    fidelity_preset --time 3 --frames 8``), its rows printed. Each run's
+    launches are counted from 0 and added to the kernels line."""
+    import numpy as np
+    import torch
+    from tinyrenderer_tpu_torch import entry as entrylib
+    from tinyrenderer_tpu_torch.assets import hdr as hdrlib
+    from tinyrenderer_tpu_torch.ops import env as envops
+    from tinyrenderer_tpu_torch.tools import fidelity_report, gen_default_ibl
+
+    t_phase = time.perf_counter()
+    # (a) the entry's frame function
+    fn, args = entrylib.entry("cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    run = add_counts()
+    assert run.get("K1", 0) > 1 and run.get("K2") == 1 and run.get("K3") == 1, run
+    assert out.sdr.shape == (128, 256, 3) and torch.isfinite(out.hdr).all()
+    assert len(torch.unique(out.pick_id)) > 2 and (out.pick_id == 0).any()
+    kernel_vs_plain("11a entry() frame 256x128", lambda: fn(*args))
+    reset_counts()
+    entry_ms = _median_ms(lambda: fn(*args), 9)
+    add_counts()
+    print(f"11a entry() frame 256x128 (card {smi}): {entry_ms:.3f} ms "
+          f"(CUDA events, median of 9); launches of one frame {run}",
+          flush=True)
+
+    # (b) the full-size bake against the checked-in asset
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ibl_") as tmp:
+        path = os.path.join(tmp, "ibl.npz")
+        t0 = time.perf_counter()
+        assert gen_default_ibl.main(["--out", path]) == 0
+        tool_ms = (time.perf_counter() - t0) * 1e3
+        with np.load(path) as f:
+            irr = f["irradiance"]
+    with np.load(gen_default_ibl.DEFAULT_OUT) as f:
+        asset = f["irradiance"]
+    assert irr.dtype == asset.dtype == np.float16 and irr.shape == asset.shape
+    step = np.spacing(np.abs(asset)).astype(np.float32)
+    d = np.abs(irr.astype(np.float32) - asset.astype(np.float32))
+    # the float32 bakes may differ in their last bits, which moves a value
+    # across a float16 rounding boundary: one float16 step at most
+    assert (d <= step).all(), float((d / step).max())
+    cube = envops.equirect_to_cubemap(
+        torch.as_tensor(hdrlib.procedural_sky(), device=dev),
+        256, gamma_decode=False)
+    bake_ms = _median_ms(lambda: envops.bake_irradiance(cube, 64), 5)
+    print(f"11b default IBL (card {smi}): the generator {tool_ms:.1f} ms "
+          f"(host clock: sky, cube, bake, copy back, npz); the 64-texel bake "
+          f"of the 256-texel cube {bake_ms:.3f} ms (median of 5); "
+          f"{int((d > 0).sum())} of {d.size} values one float16 step off the "
+          f"checked-in asset, the rest equal", flush=True)
+
+    # (c) the fidelity report at 1920x1080
+    for world in ("level", "textured"):
+        reset_counts()
+        rows = fidelity_report.main(
+            ["--world", world, "--level", LEVEL, "--only",
+             "default,performance_preset,fidelity_preset", "--time", "3",
+             "--frames", "8"])
+        run = add_counts()
+        assert [r["config"] for r in rows] == [
+            "reference_parity", "default", "fidelity_preset",
+            "performance_preset"], rows
+        for r in rows:
+            assert r["sdr"].shape == (1080, 1920, 3) and r["ms_per_frame"] > 0
+        assert rows[0]["psnr_db"] == float("inf")
+        compact = [{k: ("exact" if v == float("inf") else v)
+                    for k, v in r.items() if k != "sdr"} for r in rows]
+        print(f"11c fidelity report, {world}, 1920x1080 (card {smi}): "
+              + json.dumps(compact) + f"; launches {run}", flush=True)
+    print(f"11 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -1210,7 +1300,32 @@ def main(argv: list[str]) -> int:
                   f"{r['launches']:.0f} | {ks} ms |", flush=True)
             for ms, count, key in r["top"]:
                 print(f"    {ms:.4f} ms  x{count}  {key}", flush=True)
+        sync_free(engine, label)
         return out, frame_ms, per_frame, run, peak_mb
+
+    def sync_free(engine, label):
+        """Ten settled frames under ``set_sync_debug_mode("error")``: no
+        op of the steady frame synchronizes or uploads from pageable
+        memory; ``drain_monitors()`` then leaves no fetch queued and the
+        config as it was. Counts from 0, added to ``launches``."""
+        assert engine._settled, label
+        cfg0 = engine.cfg
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(10):
+                engine.run_frame(0.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        queued = len(engine._overflow_inflight)
+        engine.drain_monitors()
+        add_counts()
+        assert not engine._overflow_inflight and engine.cfg == cfg0, label
+        sync_free.runs.append(label)
+        return queued
+
+    sync_free.runs = []
 
     def kernel_vs_plain(label, render, chunk=16):
         """One frame through the kernels and one with every kernel swapped
@@ -1467,13 +1582,14 @@ def main(argv: list[str]) -> int:
     assert int(out5b.tex_overflow[1]) > 0
     kernel_vs_plain("demo.lvl 1920x1080 forward-only", lambda: render3(
         dataclasses.replace(cfg5b, forward_only=True)))
-    if profile:     # the same two frames as engine runs
-        for label, change in (("demo.lvl with the overlay", {}),
-                              ("demo.lvl forward-only", dict(forward_only=True))):
-            eng3.cfg = dataclasses.replace(cfg5b, **change)
-            eng3._atlas = None
-            settle(eng3, label)
-            timed_frames(eng3, (), label)
+    # the same two frames as engine runs (timed, then steady frames under
+    # the sync debug mode; profiled with --profile)
+    for label, change in (("demo.lvl with the overlay", {}),
+                          ("demo.lvl forward-only", dict(forward_only=True))):
+        eng3.cfg = dataclasses.replace(cfg5b, **change)
+        eng3._atlas = None
+        settle(eng3, label)
+        timed_frames(eng3, (), label)
 
     # ---- phase 6: the unfused deferred chain and K6, 1920x1080 -----------
     # the textured world of phase 5 (point + directional light, billboard)
@@ -1690,7 +1806,10 @@ def main(argv: list[str]) -> int:
                   launches, verify)
 
     # ---- phase 10: the frame loop -----------------------------------------
-    frame_loop_phase(dev, smi, eng3, c5, reset_counts, add_counts)
+    frame_loop_phase(dev, smi, eng3, c5, reset_counts, add_counts, sync_free)
+
+    # ---- phase 11: the single-card entry and the offline tools ------------
+    entry_tools_phase(dev, smi, reset_counts, add_counts, kernel_vs_plain)
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),

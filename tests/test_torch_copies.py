@@ -177,6 +177,18 @@ def test_host_assets_agree():
                                   jhdr.decode_hdr(jhdr.encode_hdr(sky[:32])))
 
 
+def test_default_ibl_asset_is_the_reference_asset():
+    """The port's embedded irradiance map holds the JAX package's arrays:
+    a run of the port's generator that drifted the asset fails here."""
+    with np.load(os.path.join(ROOT, "tinyrenderer_tpu_torch", "assets",
+                              "default_ibl.npz")) as t, \
+            np.load(os.path.join(ROOT, "tinyrenderer_tpu", "assets",
+                                 "default_ibl.npz")) as j:
+        assert sorted(t.files) == sorted(j.files) == ["irradiance"]
+        for k in j.files:
+            assert t[k].dtype == j[k].dtype and np.array_equal(t[k], j[k]), k
+
+
 def _editor_session(pkg: str, tmp_path) -> list:
     """One scripted editor session through a package's own events, gizmo,
     controller and scene modules, with a fixed pick function in place of a

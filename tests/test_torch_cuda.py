@@ -634,3 +634,50 @@ def test_engine_steady_frames_do_not_synchronize(cuda):
     assert not eng._overflow_inflight and eng.cfg == cfg
     assert torch.equal(first.pick_id, out.pick_id)
     assert torch.equal(first.sdr, out.sdr)
+
+
+@pytest.mark.cuda
+def test_entry_on_the_card_matches_the_cpu_entry(cuda):
+    """``entry("cuda")`` launches K1 (main view, overlay, shadow views), K2
+    and K3 and renders the CPU entry's pick ids."""
+    from tinyrenderer_tpu_torch import entry
+    from tinyrenderer_tpu_torch.utils import verify
+    fn, args = entry.entry("cuda")
+    k = (raster.K1_LAUNCHES, resolve.K2_LAUNCHES, shading.K3_LAUNCHES)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert raster.K1_LAUNCHES > k[0] + 1
+    assert (resolve.K2_LAUNCHES, shading.K3_LAUNCHES) == (k[1] + 1, k[2] + 1)
+    cfn, cargs = entry.entry("cpu")
+    ref = cfn(*cargs)
+    assert torch.equal(out.pick_id.cpu(), ref.pick_id)
+    res = verify.edge_aware_compare(out.sdr.cpu().numpy(), ref.sdr.numpy(),
+                                    pick=ref.pick_id.numpy())
+    assert res["status"] == "pass", res
+
+
+@pytest.mark.cuda
+def test_spec_functions_on_the_card(cuda):
+    """The off-path spec functions take CUDA tensors (plain torch, no
+    kernel): ``select_rows_onehot`` selects the rows the CPU selects, and
+    ``sample_pool_bilinear_level`` samples the CPU's values."""
+    rng = np.random.default_rng(5)
+    setup, bins = _bins(torch.device("cpu"), 16, 128)
+    tid, _ = raster.rasterize_binned(bins, 16, 128)
+    table = torch.from_numpy(rng.random((setup.rows.shape[0], 53),
+                                        dtype=np.float32))
+    want = resolve.select_rows_onehot(tid, bins.ids, table, 16, 128)
+    got = resolve.select_rows_onehot(tid.to(cuda), bins.ids.to(cuda),
+                                     table.to(cuda), 16, 128)
+    assert torch.equal(got.cpu(), want)
+    mips = [rng.uniform(0, 1, (2, s, s, 4)).astype(np.float32)
+            for s in (16, 8)]
+    pool = sampling.pack_texture_pool(mips)
+    pool_d = sampling.pack_texture_pool(mips, device=cuda)
+    uv = torch.from_numpy(rng.uniform(-1, 2, (8, 16, 2)).astype(np.float32))
+    tex = torch.from_numpy(rng.integers(0, 2, (8, 16)).astype(np.int32))
+    for level in (0, 1):
+        a = sampling.sample_pool_bilinear_level(pool, tex, uv, level)
+        b = sampling.sample_pool_bilinear_level(pool_d, tex.to(cuda),
+                                                uv.to(cuda), level)
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-6)

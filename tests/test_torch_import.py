@@ -26,7 +26,8 @@ HOST_MODULES = ["tinyrenderer_tpu_torch." + m for m in (
     "editor.session", "render.global_params", "render.reload",
     "utils.notify", "utils.containers", "utils.image_io", "viewer.server",
     "viewer.__main__", "__main__", "parallel.sharded", "parallel.launch",
-    "parallel.__main__", "tools.orbit", "utils.async_fetch")]
+    "parallel.__main__", "tools.orbit", "utils.async_fetch", "entry",
+    "tools.gen_default_ibl", "tools.fidelity_report")]
 
 
 def _forbidden(name: str) -> bool:
@@ -48,7 +49,10 @@ def test_port_never_imports_jax():
             "tinyrenderer_tpu_torch.parallel.launch",
             "tinyrenderer_tpu_torch.parallel.__main__",
             "tinyrenderer_tpu_torch.utils.async_fetch",
-            "tinyrenderer_tpu_torch.tools.orbit"} <= set(PORT_MODULES)
+            "tinyrenderer_tpu_torch.tools.orbit",
+            "tinyrenderer_tpu_torch.entry",
+            "tinyrenderer_tpu_torch.tools.gen_default_ibl",
+            "tinyrenderer_tpu_torch.tools.fidelity_report"} <= set(PORT_MODULES)
     assert "tinyrenderer_tpu_torch.shared" not in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"

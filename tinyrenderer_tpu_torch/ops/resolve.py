@@ -562,3 +562,112 @@ def resolve_gbuffer_onehot(tri_id: torch.Tensor, depth: torch.Tensor, setup,
     return resolve_gbuffer_from_attrs(r, tri_id, depth, pool, texture_filter,
                                       texture_scale, tex_block_capacity,
                                       sample_textures)
+
+
+# ---- the readable spec (not on any frame path) ------------------------------
+
+def interpolate(tri_id: torch.Tensor, setup_rows: torch.Tensor,
+                tri_vidx: torch.Tensor, attr_rows: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Perspective-correct attribute interpolation by per-pixel gathers.
+
+    tri_id (H, W) i32 (-1 none); setup_rows (T, 16); tri_vidx (T, 3);
+    attr_rows (V, C) -> ((H, W, C) attributes, (H, W) valid mask).
+    REFERENCE IMPLEMENTATION, as the reference's: not on any frame path."""
+    H, W = tri_id.shape
+    valid = tri_id >= 0
+    tid = tri_id.clamp(min=0).long()
+    rows = setup_rows[tid]                                    # (H, W, 16)
+    px = (torch.arange(W, dtype=F32, device=rows.device) + 0.5)[None, :]
+    py = (torch.arange(H, dtype=F32, device=rows.device) + 0.5)[:, None]
+    lam = torch.stack([rows[..., 3 * k] * px + rows[..., 3 * k + 1] * py
+                       + rows[..., 3 * k + 2] for k in range(3)], dim=-1)
+    lam_p = lam * rows[..., 13:16]
+    denom = lam_p.sum(dim=-1, keepdim=True)
+    bary = lam_p / torch.where(denom.abs() > 1e-20, denom,
+                               torch.ones_like(denom))
+    attrs = attr_rows[tri_vidx.long()[tid]]                   # (H, W, 3, C)
+    return torch.einsum("hwk,hwkc->hwc", bary, attrs), valid
+
+
+def resolve_gbuffer(tri_id: torch.Tensor, depth: torch.Tensor,
+                    setup_rows: torch.Tensor, tri_vidx: torch.Tensor,
+                    tri_instance: torch.Tensor, attrs: VertexAttrs,
+                    inst_object_id: torch.Tensor, inst_material: torch.Tensor,
+                    mat_tex_slots: torch.Tensor, mat_flat: torch.Tensor,
+                    pool) -> GBuffer:
+    """Full GBuffer resolve with material evaluation, by per-pixel gathers
+    of the vertex attributes, materials and the per-texture pool
+    (``ScenePacker.scalar_pool_gpu``).
+
+    REFERENCE IMPLEMENTATION, as the reference's: not on any frame path.
+    It is the readable spec of what the frame's resolve (the table, select
+    + eval, :func:`resolve_gbuffer_from_attrs`) computes.
+
+    mat_tex_slots (M, 4) i32 [albedo, normal, roughness, metalness];
+    mat_flat (M, 6) [albedo rgb, roughness, metalness, use_textures]."""
+    interp, valid = interpolate(tri_id, setup_rows, tri_vidx, attrs.rows())
+    world, uv = interp[..., 0:3], interp[..., 3:5]
+    n_geom = _safe_normalize(interp[..., 5:8])
+    tangent = _safe_normalize(interp[..., 8:11])
+    bitangent = _safe_normalize(interp[..., 11:14])
+
+    inst = tri_instance.long()[tri_id.clamp(min=0).long()]
+    mat = inst_material.long()[inst]                          # (H, W)
+    slots = mat_tex_slots[mat]                                # (H, W, 4)
+    flat = mat_flat[mat]                                      # (H, W, 6)
+    use_tex = flat[..., 5] > 0.5
+
+    level = sampling.mip_level_from_uv(uv, pool.level_sizes[0])
+    duv = sampling.pool_duv(pool, uv)
+
+    def tap(i):
+        return sampling.sample_pool_mip(pool, slots[..., i], uv, level,
+                                        duv=duv)
+
+    albedo_t = tap(0)[..., :3]
+    normal_t = tap(1)[..., :3]
+    rough_t = tap(2)[..., 0]
+    metal_t = tap(3)[..., 0]
+    # TBN normal mapping
+    nt = normal_t * 2.0 - 1.0
+    n_mapped = _safe_normalize(nt[..., 0:1] * tangent
+                               + nt[..., 1:2] * bitangent
+                               + nt[..., 2:3] * n_geom)
+    u = use_tex[..., None]
+    albedo = torch.where(u, albedo_t, flat[..., 0:3])
+    normal = torch.where(u, n_mapped, n_geom)
+    rough = torch.where(use_tex, rough_t, flat[..., 3])
+    metal = torch.where(use_tex, metal_t, flat[..., 4])
+    vm = valid[..., None]
+    zero = torch.zeros((), device=depth.device)
+    return GBuffer(
+        position=torch.where(vm, world, zero),
+        normal=torch.where(vm, normal, zero),
+        albedo=torch.where(vm, albedo, zero),
+        rough_metal_ao=torch.where(
+            vm, torch.stack([rough, metal, torch.ones_like(rough)], dim=-1),
+            zero),
+        depth=depth,
+        object_id=torch.where(valid, inst_object_id[inst], 0),
+        mask=valid)
+
+
+def select_rows_onehot(tri_id: torch.Tensor, bin_ids: torch.Tensor,
+                       table: torch.Tensor, tile_h: int, tile_w: int
+                       ) -> torch.Tensor:
+    """Per-pixel row selection: (H, W) winner ids + (ty, tx, K) bin lists +
+    (T, D) table -> (H, W, D). The reference selects with a one-hot product
+    over each tile's bin; here each pixel gathers ``table[tri_id]`` where
+    its id is in its tile's bin, zeros elsewhere: the same rows, copied
+    exactly. Not on any frame path (K2 selects the frame's rows)."""
+    H, W = tri_id.shape
+    ty, tx, K = bin_ids.shape
+    tiles = tri_id.reshape(ty, tile_h, tx, tile_w).permute(0, 2, 1, 3)
+    tiles = tiles.reshape(ty, tx, tile_h * tile_w)           # (ty, tx, P)
+    in_bin = ((tiles[..., None] == bin_ids[:, :, None, :])
+              & (bin_ids >= 0)[:, :, None, :]).any(dim=-1)
+    sel = table[tiles.clamp(0, table.shape[0] - 1).long()]  # (ty, tx, P, D)
+    sel = torch.where(in_bin[..., None], sel, torch.zeros_like(sel))
+    sel = sel.reshape(ty, tx, tile_h, tile_w, -1).permute(0, 2, 1, 3, 4)
+    return sel.reshape(H, W, -1)

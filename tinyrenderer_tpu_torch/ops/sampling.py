@@ -456,6 +456,43 @@ def mip_level_from_uv(uv: torch.Tensor, base_size: int) -> torch.Tensor:
     return (0.5 * _log2(texel_d2.clamp(min=1e-12))).clamp(min=0.0)
 
 
+# ---- one static level (tests and tooling; not on any frame path) -----------
+
+def _gather_texel(pool: TexturePoolGPU, tex: torch.Tensor, level: int,
+                  ix: torch.Tensor, iy: torch.Tensor) -> torch.Tensor:
+    """The pool rows of texels (ix, iy), clamped to the level's edge."""
+    s = pool.level_sizes[level]
+    idx = (tex * pool.texels_per_tex + pool.level_offsets[level]
+           + pool._texel_index(iy.clamp(0, s - 1), ix.clamp(0, s - 1), s))
+    return pool.texels[idx.long()]
+
+
+def sample_pool_bilinear_level(pool: TexturePoolGPU, tex: torch.Tensor,
+                               uv: torch.Tensor, level: int,
+                               wrap: bool = True) -> torch.Tensor:
+    """Bilinear sample at one static mip level: four texel gathers. uv
+    (..., 2); tex (...) i32 -> (..., C)."""
+    s = pool.level_sizes[level]
+    u = uv[..., 0] * s - 0.5
+    v = uv[..., 1] * s - 0.5
+    if wrap:
+        u, v = torch.remainder(u, s), torch.remainder(v, s)
+    x0, y0 = torch.floor(u), torch.floor(v)
+    fx, fy = (u - x0)[..., None], (v - y0)[..., None]
+    x0i, y0i = x0.to(I32), y0.to(I32)
+    if wrap:
+        x1i, y1i = torch.remainder(x0i + 1, s), torch.remainder(y0i + 1, s)
+        x0i, y0i = torch.remainder(x0i, s), torch.remainder(y0i, s)
+    else:
+        x1i, y1i = x0i + 1, y0i + 1
+
+    def texel(xi, yi):
+        return pool._decode(_gather_texel(pool, tex, level, xi, yi))
+
+    return ((texel(x0i, y0i) * (1 - fx) + texel(x1i, y0i) * fx) * (1 - fy)
+            + (texel(x0i, y1i) * (1 - fx) + texel(x1i, y1i) * fx) * fy)
+
+
 # ---- the native-size pool ---------------------------------------------------
 
 @dataclass

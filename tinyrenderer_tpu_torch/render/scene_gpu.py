@@ -241,6 +241,13 @@ class ScenePacker:
         return self.texture_pool_gpu(device, cfg.windowed_pool,
                                      cfg.morton_pool)
 
+    def scalar_pool_gpu(self, device) -> sampling.TexturePoolGPU:
+        """The per-texture 4-channel f32 pool on ``device`` (the spec
+        resolve ``resolve.resolve_gbuffer``, tests and tooling; not on any
+        frame path)."""
+        return sampling.pack_texture_pool(self.pool.device_arrays(),
+                                          device=device)
+
     def _count_textured_deferred(self, t_inst, t_def, i_mat) -> int:
         """Textured materials referenced by at least one deferred triangle
         (drives cfg.any_textured)."""
