@@ -82,7 +82,7 @@ runs, each phase asserting or letting its exception propagate:
    renders the settle took and its time; (b) ten settled demo.lvl frames
    under ``torch.cuda.set_sync_debug_mode("error")``, as every engine run
    timed in the phases above had after its timed frames (the 19
-   configurations of PERF.md section 5, demo.lvl with its overlay and
+   configurations that phases 2-7 time, demo.lvl with its overlay and
    forward-only included); (c) 30 steady frames
    of demo.lvl and of the textured world under SSR 0.5 with one
    synchronize at the end and with one after every frame;
@@ -91,12 +91,26 @@ runs, each phase asserting or letting its exception propagate:
    through the kernels and through the plain versions, timed; (b) the
    default-IBL generator at full size against the checked-in asset,
    timed; (c) the fidelity report on demo.lvl and on the textured world
-   at 1920x1080 for the default and the two presets, timed.
+   at 1920x1080 for the default and the two presets, timed;
+12. the compiled frame (:func:`compiled_phase`): 21 configurations (the
+   19 that phases 2-7 time, the HDR skybox engine, the 500-object stress
+   world) on an orbiting camera, a free-running orbit that leaves no
+   overflow a drained orbit finds, every compiled frame bit-equal to the
+   eager frame on its arguments, the capture's host ms and memory, steady
+   frames eagerly and compiled with equal launch counts and no
+   synchronization; demo.lvl's editor edit frames both ways; (c) the
+   compiled caches dropped by phase 8c's library rebuild and captured anew.
 
 Every engine frame is a settled one: ``Engine.render`` reads the monitors
-of a frame under a config it has not verified and renders it again while
-a capacity grew. The first frame of a fresh engine, or after a config
-change, may so launch each kernel more than once.
+of a frame under a config it has not verified and renders it again
+(eagerly) while a capacity grew. The first frame of a fresh engine, or
+after a config change, may so launch each kernel more than once. A
+settled frame replays the config's compiled frame and atlas
+(``render/compiled.py``): CUDA graphs captured at its first settled frame
+(``settle`` re-renders the atlas so that both are captured before a timed
+run; a capture's warm-up launches count, a replay counts the launches it
+runs). Where a phase records a wrapper's inputs it renders eagerly on the
+engine's arguments (:func:`_frame_args`): a replay calls no wrapper.
 
 A kernel's time is its share of a run of launches: N back-to-back calls
 of its wrapper between one pair of CUDA events, divided by N, the median
@@ -124,8 +138,11 @@ With ``--profile``, every engine run timed above (and demo.lvl with its
 overlay and forward-only, settled and timed the same way) is followed by
 ``torch.profiler`` over 5 more frames: device time and device-side
 launches a frame (kernel, copy and fill events), the idle share of the
-steady frame, each hand-written kernel's time and the costliest device
-entries. They are printed and written one JSON object a run to
+steady frame, each hand-written kernel's time and launches, and the
+costliest device entries. Each kernel's launches in the trace must equal
+what its launch counter added over the same frames (a replayed graph's
+counts are the ones its capture recorded, so this is what shows that the
+card ran them). They are printed and written one JSON object a run to
 ``chiprun_out/chip_smoke_profile.jsonl``.
 
 Usage: ``python3 chip_smoke.py [--profile]`` from the repository root (one
@@ -247,16 +264,25 @@ def _launch_run_ms(fn, runs: int = 7, span_ms: float = 2.0,
 def _device_profile(engine, steady_ms: float, n: int = 5) -> dict:
     """``torch.profiler`` over ``n`` engine frames: device ms, device-side
     launches, the idle share of ``steady_ms`` and each kernel's ms, a
-    frame, and the ten costliest device entries."""
+    frame, and the ten costliest device entries. Each kernel's launches in
+    the trace (by its ``__global__`` name; K4's list-building helper not
+    counted) must equal what its counter added over the same frames: a
+    replayed graph counts what the card ran, not what its capture
+    recorded."""
     import torch
     from torch.autograd import DeviceType
+    from tinyrenderer_tpu_torch.render.compiled import launch_counts
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    c0 = launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n):
             engine.run_frame(0.0)
         torch.cuda.synchronize()
-    device_us, launches, kernel_us = 0.0, 0, dict.fromkeys(GLOBALS, 0.0)
+    c1 = launch_counts()
+    counted = {k: c1[k] - c0[k] for k in c0 if c1[k] != c0[k]}
+    device_us, launches = 0.0, 0
+    kernel_us, traced = dict.fromkeys(GLOBALS, 0.0), dict.fromkeys(GLOBALS, 0)
     entries = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -268,12 +294,18 @@ def _device_profile(engine, steady_ms: float, n: int = 5) -> dict:
         for k, names in GLOBALS.items():
             if any(re.search(rf"\b{name}(\b[<(]|$)", e.key) for name in names):
                 kernel_us[k] += us
+                if not re.search(r"\bstream_parts_kernel\b", e.key):
+                    traced[k] += e.count
     if device_us <= 0:
         raise RuntimeError("the profiler saw no device time")
+    traced = {k: v for k, v in traced.items() if v}
+    assert traced == counted, ("kernels in the trace", traced,
+                               "launches counted", counted)
     device_ms = device_us / 1e3 / n
     return {"steady_ms": steady_ms, "device_ms": device_ms,
             "idle": 1.0 - device_ms / steady_ms, "launches": launches / n,
             "kernel_ms": {k: v / 1e3 / n for k, v in kernel_us.items() if v},
+            "kernel_launches": {k: v / n for k, v in traced.items()},
             "top": [(us / 1e3 / n, c // n, key[:80])
                     for us, c, key in sorted(entries, reverse=True)[:10]]}
 
@@ -286,6 +318,50 @@ def _patched(module, name: str, fn):
         yield
     finally:
         setattr(module, name, old)
+
+
+def _frame_args(engine) -> tuple:
+    """``render_frame``'s arguments for an engine's next frame: its pack,
+    pool, lights, camera (uploaded here), parameters, environment, config
+    and cached atlas."""
+    import torch
+    c = engine.cfg
+    return (engine._pack.scene, engine._packer.pool_for(c, engine.device),
+            engine._pack.lights,
+            torch.as_tensor(engine.camera.to_raw(), device=engine.device),
+            engine.params, engine._ensure_env(), c, engine._atlas)
+
+
+@contextlib.contextmanager
+def _eager_frames():
+    """Engine frames rendered eagerly, as before the compiled frame:
+    ``compiled_frame`` and ``compiled_shadow_atlas`` swapped for the plain
+    calls while the context is open."""
+    from tinyrenderer_tpu_torch.render import frame as framelib
+
+    def frame(cfg):
+        def fn(scene, pool, lights, camera_raw, params, *rest):
+            # the engine hands a compiled frame its camera in pinned memory
+            cam = camera_raw.to(params.device, non_blocking=True)
+            return framelib.render_frame(scene, pool, lights, cam, params,
+                                         *rest[:1], cfg, *rest[1:])
+        return fn
+
+    def atlas(cfg):
+        return lambda scene, lights: framelib.render_shadow_atlas(
+            scene, lights, cfg)
+
+    with _patched(framelib, "compiled_frame", frame), \
+            _patched(framelib, "compiled_shadow_atlas", atlas):
+        yield
+
+
+def _same_frame(label: str, a, b) -> None:
+    """Every field of two FrameOutputs bit-equal (dtype and shape too)."""
+    import torch
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert x.dtype == y.dtype and torch.equal(x, y), (label, f.name)
 
 
 def _decode_png(data: bytes):
@@ -378,11 +454,17 @@ def editor_phase(dev, smi: str, cfg, viewer_cfg, edits: int, cli_args: list,
                 f"{float(np.percentile(ms, 90)):.3f} ms over {len(ms)}")
 
     def settle_app(app, label):
+        """Frames until the capacities hold; then one that re-renders the
+        atlas, so both compiled graphs of the config are captured."""
         for _ in range(8):
             cfg_before, atlas_frame = app.engine.cfg, app.engine._atlas is None
             out = app.run_frame(0.0)
             torch.cuda.synchronize()
             if app.engine.cfg == cfg_before and not atlas_frame:
+                app.engine._atlas = None
+                out = app.run_frame(0.0)
+                torch.cuda.synchronize()
+                assert app.engine.cfg == cfg_before, label
                 return out
         raise AssertionError(f"{label}: capacities did not settle")
 
@@ -526,6 +608,7 @@ def editor_phase(dev, smi: str, cfg, viewer_cfg, edits: int, cli_args: list,
         torch.cuda.synchronize()
         for f in ("pick_id", "sdr", "hdr"):
             assert torch.equal(getattr(out, f), getattr(base, f)), (label, f)
+        return out
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_reload_") as tmp:
         try:
@@ -541,7 +624,22 @@ def editor_phase(dev, smi: str, cfg, viewer_cfg, edits: int, cli_args: list,
             assert res.ok and res.reloaded == [reloadlib.LIBRARY], res
             assert kernels._lib is not lib0 and kernels._lib_path != path0
             assert eng.notifier.history()[-1].message == "Reloaded kernels: csrc"
-            same_frame("rebuilt library")
+            # (12c) the reload dropped every compiled frame and atlas; the
+            # next frame captures both anew, through the new library
+            cached = (framelib.compiled_frame.cache_info().currsize,
+                      framelib.compiled_shadow_atlas.cache_info().currsize)
+            assert cached == (0, 0), cached
+            eng._atlas = None
+            out = same_frame("rebuilt library")
+            graphs = (len(framelib.compiled_frame(eng.cfg)._entries),
+                      len(framelib.compiled_shadow_atlas(eng.cfg)._entries))
+            assert graphs == (1, 1), graphs
+            _same_frame("12c the frame captured after the reload", out,
+                        framelib.render_frame(*_frame_args(eng)))
+            print(f"12c reload: after the library rebuild the compiled caches "
+                  f"held {cached} entries; the next frame captured the frame "
+                  f"and the atlas anew {graphs} and equals the eager frame "
+                  f"bit for bit", flush=True)
             lib1, path1 = kernels._lib, kernels._lib_path
             broken = os.path.join(tmp, "csrc_broken")
             shutil.copytree(edited, broken)
@@ -838,7 +936,7 @@ def frame_loop_phase(dev, smi: str, lvl_engine, textured_cfg, reset_counts,
     ``torch.cuda.set_sync_debug_mode("error")``; ``drain_monitors()`` then
     leaves no fetch queued and the config as it was (``sync_free``, which
     every engine run that the phases above timed went through as well:
-    the 19 configurations of PERF.md section 5). (c) 30 steady frames
+    the 19 configurations that phases 2-7 time). (c) 30 steady frames
     of demo.lvl and of the textured world under SSR 0.5, timed with one
     synchronize at the end and with one after every frame (the loop that
     read its monitors synchronously), in turns. Every run's launches are
@@ -994,6 +1092,9 @@ def entry_tools_phase(dev, smi: str, reset_counts, add_counts,
     from tinyrenderer_tpu_torch import entry as entrylib
     from tinyrenderer_tpu_torch.assets import hdr as hdrlib
     from tinyrenderer_tpu_torch.ops import env as envops
+    from tinyrenderer_tpu_torch.render import frame as framelib
+    from tinyrenderer_tpu_torch.render.engine import Engine
+    from tinyrenderer_tpu_torch.scene import demo
     from tinyrenderer_tpu_torch.tools import fidelity_report, gen_default_ibl
 
     t_phase = time.perf_counter()
@@ -1011,9 +1112,22 @@ def entry_tools_phase(dev, smi: str, reset_counts, add_counts,
     reset_counts()
     entry_ms = _median_ms(lambda: fn(*args), 9)
     add_counts()
+    # the same unit compiled: compiled_frame(cfg) on entry()'s arguments
+    # (an engine built as entry() builds its own, for its environment)
+    eng = Engine.from_world(demo.build_demo_world(),
+                            cfg=entrylib.small_config(), device=dev)
+    eng.update(0.0)
+    eng._drain_actions()
+    cargs = (*args, eng._ensure_env())
+    cfn = framelib.compiled_frame(eng.cfg)
+    _same_frame("11a compiled entry frame", cfn(*cargs), out)
+    reset_counts()
+    compiled_ms = _median_ms(lambda: cfn(*cargs), 9)
+    add_counts()
     print(f"11a entry() frame 256x128 (card {smi}): {entry_ms:.3f} ms "
-          f"(CUDA events, median of 9); launches of one frame {run}",
-          flush=True)
+          f"(CUDA events, median of 9); launches of one frame {run}; "
+          f"compiled_frame(small_config()) on its arguments bit-equal, "
+          f"{compiled_ms:.3f} ms", flush=True)
 
     # (b) the full-size bake against the checked-in asset
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ibl_") as tmp:
@@ -1062,6 +1176,320 @@ def entry_tools_phase(dev, smi: str, reset_counts, add_counts,
     print(f"11 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def compiled_phase(dev, smi: str, textured_cfg, reset_counts, add_counts,
+                   sync_free, profile: bool, profiles: list,
+                   frames: int = 30, timed: int = 10) -> dict:
+    """Phase 12: the compiled frame (``render/compiled.py``). (a) 21
+    configurations at their published sizes (the 19 that phases 2-7 time,
+    the HDR skybox engine of 7a and bench.py's 500-object stress world at
+    2560x1440): a fresh engine orbits on ``tools/orbit.py``'s path without
+    waiting for its monitors until an orbit grows nothing (the host at most
+    four frames ahead; its waits and the fetches a growth discarded are
+    printed), then once with every frame's monitors read before the next
+    pose, which must grow nothing; the compiled caches are
+    then dropped and the next frame captures the config's frame and atlas
+    (host ms and the graphs' memory printed); the orbit again, with a
+    ``set_param`` at frame ``frames // 2``, every frame bit-equal (every
+    FrameOutput field, monitors included) to the eager ``render_frame`` on
+    its arguments and no new capture; ``timed`` steady frames eagerly and
+    compiled (CUDA events: median, p90; peak memory; with ``--profile``
+    ``torch.profiler``'s device ms, launches and idle share both ways, and
+    each kernel's launches in the trace equal to its counter's). (b)
+    demo.lvl in ``EditorApp`` with an object selected (each frame repacks
+    and re-renders the atlas): compiled edit frames equal the eager ones,
+    timed both ways. (d) Every configuration's replays run under
+    ``set_sync_debug_mode("error")`` (``sync_free``). (e) The launch counts
+    of the compiled timed frames equal the eager ones. (c) is phase 8c's
+    library rebuild. Returns the numbers by configuration."""
+    import numpy as np
+    import torch
+    from tinyrenderer_tpu_torch.config import RenderConfig
+    from tinyrenderer_tpu_torch.editor import events as ev
+    from tinyrenderer_tpu_torch.editor.session import EditorApp
+    from tinyrenderer_tpu_torch.assets import hdr as hdrlib
+    from tinyrenderer_tpu_torch.render import frame as framelib
+    from tinyrenderer_tpu_torch.render import reload as reloadlib
+    from tinyrenderer_tpu_torch.render.engine import Engine
+    from tinyrenderer_tpu_torch.scene import demo
+
+    t_phase = time.perf_counter()
+    R, c5 = dataclasses.replace, textured_cfg
+    MiB = 2.0 ** 20
+
+    def world(builder, cfg, size=(1920, 1080), **kw):
+        return lambda: Engine.from_world(
+            builder(), camera=demo.build_demo_camera(*size), cfg=cfg,
+            device=dev, **kw)
+
+    def textured(cfg, **kw):
+        return world(lambda: demo.build_demo_world(n_cubes=24,
+                                                   textured_every=2), cfg, **kw)
+
+    def level(cfg):
+        return lambda: Engine(cfg=cfg, device=dev, level_path=LEVEL)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_12_")
+    sky_path = os.path.join(tmp, "sky.hdr")
+    with open(sky_path, "wb") as f:
+        f.write(hdrlib.encode_hdr(hdrlib.procedural_sky()))
+    ssr = {framelib.PARAM_SSR_STRENGTH: 0.5}
+    runs = [   # label, engine factory, parameters
+        ("demo world, directional light (fused)", world(
+            lambda: demo.build_demo_world(n_cubes=24, with_point_light=False),
+            RenderConfig()), {}),
+        ("demo.lvl with the overlay", level(RenderConfig()), {}),
+        ("demo.lvl forward-only", level(RenderConfig(forward_only=True)), {}),
+        ("textured world (fused)", textured(c5), {}),
+        ("high-poly world (stream)", world(
+            lambda: demo.build_highpoly_world(9), RenderConfig(
+                width=1920, height=1080, max_instances=64,
+                max_vertices=131072, max_triangles=131072, bin_capacity=1024,
+                tile_h=8)), {}),
+        ("textured, fused_resolve", textured(R(c5, fused_resolve=True)), {}),
+        ("textured, SSR 0.5", textured(R(c5, enable_ssr=True)), ssr),
+        ("textured, render scale 75", textured(R(c5, render_scale_pct=75)),
+         {}),
+        ("textured, texture scale 2", textured(R(c5, texture_scale=2)), {}),
+        ("textured, goldens' settings", textured(R(
+            c5, use_pallas=False, shadow_lookup_scale=4, sky_scale=4,
+            shadow_bf16=False)), {}),
+        ("sky_scale=1, fused", textured(R(c5, sky_scale=1)), {}),
+        ("block sky (4096, scale 8), fused", textured(R(
+            c5, sky_scale=8, sky_block_capacity=4096)), {}),
+        ("sky_scale=1, unfused", textured(R(c5, fused_shading=False,
+                                            sky_scale=1)), {}),
+        ("block sky (4096, scale 8), unfused", textured(R(
+            c5, fused_shading=False, sky_scale=8, sky_block_capacity=4096)),
+         {}),
+        ("cubic sky upsample", textured(R(c5, sky_upsample="cubic")), {}),
+        ("sky_scale=3 (resize)", textured(R(c5, sky_scale=3)), {}),
+        ("performance_preset()", textured(c5.performance_preset()), {}),
+        ("fidelity_preset()", textured(c5.fidelity_preset()), {}),
+        ("reference_parity()", textured(c5.reference_parity()), {}),
+        ("HDR skybox + IBL cache", textured(
+            RenderConfig(), skybox_path=sky_path,
+            ibl_cache_path=os.path.join(tmp, "ibl.data")), {}),
+        ("stress world, 500 objects", world(
+            lambda: demo.build_stress_world(500), RenderConfig(
+                width=2560, height=1440, shadow_size=2048, max_instances=1024,
+                max_vertices=16384, max_triangles=8192, max_materials=1024,
+                bin_capacity=512, gate_block_h=8, gate_block_w=8),
+            size=(2560, 1440)), {framelib.PARAM_SHADOW_BIAS: 2e-3})]
+
+    def pose(eng, k):
+        """``tools/orbit.py``'s camera: radius 16, elevation 8, looking at
+        the origin."""
+        a = 2.0 * np.pi * k / frames
+        eng.camera.position = np.array([16.0 * np.cos(a), 8.0,
+                                        16.0 * np.sin(a)], np.float32)
+        eng.camera.look_at(np.zeros(3, np.float32))
+
+    def steady(eng, label):
+        """``timed`` frames at one pose: (ms each, launches, the peak MiB
+        allocated over what was allocated before them; a graph's private
+        pool is not the allocator's to count)."""
+        eng.run_frame(0.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        reset_counts()
+        ms = []
+        for _ in range(timed):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            eng.run_frame(0.0)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        return (ms, add_counts(),
+                (torch.cuda.max_memory_allocated() - a0) / MiB)
+
+    def spread(ms):
+        return statistics.median(ms), float(np.percentile(ms, 90))
+
+    out_rows = {}
+    for label, make, params in runs:
+        t_run = time.perf_counter()
+        eng = make()
+        # phase 12 holds one config for ~250 frames of an engine: a capacity
+        # set over its default (the stress world's) shrinks after
+        # SHRINK_AFTER frames under 40% occupancy (the protocol's
+        # hysteresis, held by tests/test_torch_overflow.py), which would
+        # move the config in the middle of a check
+        eng.SHRINK_AFTER = 10 ** 6
+        for i, v in params.items():
+            eng.set_param(i, v)
+        # the orbit as a viewer runs it, never waiting for a frame's own
+        # monitors, until a whole orbit grows nothing; then the orbit with
+        # each frame's monitors read before the next pose must grow
+        # nothing either: the free loop left no pose's overflow unread
+        for _ in range(4):
+            cfg = eng.cfg
+            for k in range(frames):
+                pose(eng, k)
+                eng.run_frame(0.0)
+            eng.drain_monitors()
+            if eng.cfg == cfg:
+                break
+        assert eng._settled and eng.cfg == cfg, label
+        waits, discarded = eng.monitor_waits, eng.monitors_discarded
+        for k in range(frames):
+            pose(eng, k)
+            eng.run_frame(0.0)
+            eng.drain_monitors()
+        assert eng.cfg == cfg, (label, "the drained orbit grew", cfg, eng.cfg)
+        # the capture, from empty caches
+        reloadlib.invalidate_compiled_frames()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0, a0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng._atlas = None
+        t0 = time.perf_counter()
+        eng.run_frame(0.0)
+        torch.cuda.synchronize()
+        capture_frame_ms = (time.perf_counter() - t0) * 1e3
+        capture_peak = (torch.cuda.max_memory_allocated() - a0) / MiB
+        # what stays reserved: the graphs' private pools, the slots, the
+        # outputs (the warm-up's freed blocks are handed back first)
+        torch.cuda.empty_cache()
+        graphs_mib = (torch.cuda.memory_reserved() - r0) / MiB
+        cf, ca = (framelib.compiled_frame(cfg),
+                  framelib.compiled_shadow_atlas(cfg))
+        assert (len(cf._entries), len(ca._entries)) == (1, int(
+            cfg.enable_shadows and cfg.num_shadow_views > 0)), label
+        capture_ms = cf.capture_ms + ca.capture_ms
+        # (a) the orbit again: every frame equals the eager frame
+        exposure = float(eng.params[framelib.PARAM_EXPOSURE])
+        eng._atlas = None
+        for k in range(frames):
+            pose(eng, k)
+            if k == frames // 2:
+                eng.set_param(framelib.PARAM_EXPOSURE, 1.5)
+            out = eng.run_frame(0.0)
+            if k == 0 and eng._atlas is not None:
+                atlas = framelib.render_shadow_atlas(eng._pack.scene,
+                                                     eng._pack.lights, cfg)[0]
+                assert torch.equal(eng._atlas, atlas), (label, "atlas")
+            _same_frame(f"12a {label} frame {k}", out,
+                        framelib.render_frame(*_frame_args(eng)))
+        moved = {f.name: (getattr(cfg, f.name), getattr(eng.cfg, f.name))
+                 for f in dataclasses.fields(cfg)
+                 if getattr(cfg, f.name) != getattr(eng.cfg, f.name)}
+        assert not moved and framelib.compiled_frame(cfg) is cf, (label, moved)
+        assert len(cf._entries) == 1, (label, "captured again")
+        eng.set_param(framelib.PARAM_EXPOSURE, exposure)
+        # (e) steady frames both ways, the same launches
+        with _eager_frames():
+            e_ms, e_run, e_peak = steady(eng, label)
+        c_ms, c_run, c_peak = steady(eng, label)
+        assert c_run == e_run, (label, c_run, e_run)
+        assert len(cf._entries) == 1, (label, "captured again")
+        row = {"eager_ms": spread(e_ms), "compiled_ms": spread(c_ms),
+               "launches": {k: n // timed for k, n in c_run.items()},
+               "orbit_monitor_waits": waits,
+               "orbit_monitors_discarded": discarded,
+               "capture_ms": capture_ms, "capture_frame_ms": capture_frame_ms,
+               "eager_peak_mib": e_peak, "capture_peak_mib": capture_peak,
+               "compiled_peak_mib": c_peak, "graphs_mib": graphs_mib,
+               "reserved_mib": torch.cuda.memory_reserved() / MiB}
+        if profile:
+            with _eager_frames():
+                pe = _device_profile(eng, row["eager_ms"][0])
+            pc = _device_profile(eng, row["compiled_ms"][0])
+            # the kernels the trace saw a frame, against the counters
+            assert pc["kernel_launches"] == row["launches"], (label, pc)
+            for tag, p in (("eager", pe), ("compiled", pc)):
+                row[tag] = {k: p[k] for k in ("device_ms", "idle", "launches",
+                                              "kernel_launches")}
+                profiles.append({"config": f"{label} ({tag}, phase 12)",
+                                 "card": smi, **p})
+        # (d) ten replays under the sync debug mode
+        sync_free(eng, f"{label} (12d)")
+        out_rows[label] = row
+        prof = "".join(
+            f", {t} device {row[t]['device_ms']:.3f} ms, idle "
+            f"{100 * row[t]['idle']:.1f}%, {row[t]['launches']:.0f} launches "
+            f"(kernels in the trace a frame {row[t]['kernel_launches']})"
+            for t in ("eager", "compiled") if t in row)
+        print(f"12a {label} {cfg.width}x{cfg.height}: the free orbit waited "
+              f"{waits} times for the oldest of four fetches and discarded "
+              f"{discarded} at growths, the drained orbit grew nothing; "
+              f"{frames} orbit frames "
+              f"(set_param at {frames // 2}) bit-equal to the eager frames; "
+              f"capture {', '.join(f'{m:.1f}' for m in capture_ms)} ms host "
+              f"(frame, atlas), the capturing frame {capture_frame_ms:.1f} ms, "
+              f"graphs {graphs_mib:.0f} MiB; steady eager median "
+              f"{row['eager_ms'][0]:.3f} p90 {row['eager_ms'][1]:.3f} ms, "
+              f"compiled median {row['compiled_ms'][0]:.3f} p90 "
+              f"{row['compiled_ms'][1]:.3f} ms{prof}; launches a frame (equal "
+              f"both ways) {row['launches']}; MiB allocated over the frames' "
+              f"start at the peak: eager {e_peak:.0f}, the capturing frame "
+              f"{capture_peak:.0f}, compiled {c_peak:.0f}; reserved "
+              f"{row['reserved_mib']:.0f} ({time.perf_counter() - t_run:.1f} "
+              f"s; {smi})", flush=True)
+        del eng, cf, ca
+    shutil.rmtree(tmp, ignore_errors=True)
+    assert len(out_rows) == 21
+
+    # (b) the editor's edit frames: an object selected, every frame repacks
+    app = EditorApp(Engine(RenderConfig(), device=dev, level_path=LEVEL))
+    eng = app.engine
+    for _ in range(3):
+        app.run_frame(0.0)
+    pick = app.picker.latest
+    oid = _most_covered(pick)
+    x, y = _pixel_of(pick, oid)
+    app.handle_event(ev.MouseInput(ev.MouseButton.Left, True, x, y))
+    app.handle_event(ev.MouseInput(ev.MouseButton.Left, False, x, y))
+    assert app.selected_object_id == oid
+    for _ in range(4):
+        app.run_frame(0.0)
+    eng.drain_monitors()
+    app.run_frame(0.0)
+    assert eng._settled
+
+    def edit_frames(check):
+        ms = []
+        for _ in range(timed):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = app.run_frame(0.0)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            if check:
+                atlas = framelib.render_shadow_atlas(eng._pack.scene,
+                                                     eng._pack.lights, eng.cfg)
+                assert torch.equal(eng._atlas, atlas[0]), "12b atlas"
+                _same_frame("12b edit frame", out,
+                            framelib.render_frame(*_frame_args(eng)))
+        return ms
+
+    cfg = eng.cfg
+    with _eager_frames():
+        e_ms = edit_frames(False)
+    edit_frames(True)
+    c_ms = edit_frames(False)
+    assert eng.cfg == cfg and len(framelib.compiled_frame(cfg)._entries) == 1
+    out_rows["edit frame, demo.lvl"] = {"eager_ms": spread(e_ms),
+                                        "compiled_ms": spread(c_ms)}
+    print(f"12b demo.lvl edit frames {cfg.width}x{cfg.height} (object "
+          f"{oid} selected: repack + atlas each frame): {timed} compiled "
+          f"frames bit-equal to the eager frame and atlas; eager median "
+          f"{statistics.median(e_ms):.3f} p90 {spread(e_ms)[1]:.3f} ms, "
+          f"compiled median {statistics.median(c_ms):.3f} p90 "
+          f"{spread(c_ms)[1]:.3f} ms ({smi})", flush=True)
+    del app, eng
+    reloadlib.invalidate_compiled_frames()
+    print("12 compiled frame ms: " + json.dumps({"card": smi, **out_rows}),
+          flush=True)
+    print(f"12 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out_rows
+
+
 def main(argv: list[str]) -> int:
     import numpy as np
     import torch
@@ -1078,6 +1506,7 @@ def main(argv: list[str]) -> int:
     from tinyrenderer_tpu_torch.assets import hdr as hdrlib
     from tinyrenderer_tpu_torch.ops import (compact, raster, resolve,
                                             sampling, shading)
+    from tinyrenderer_tpu_torch.render import compiled
     from tinyrenderer_tpu_torch.render import frame as framelib
     from tinyrenderer_tpu_torch.render.engine import Engine, RenderingAction
     from tinyrenderer_tpu_torch.config import RenderConfig
@@ -1243,19 +1672,10 @@ def main(argv: list[str]) -> int:
             shade_check, shade_work(tid, outf, outh, None, gates, sky, P, D, irr))
     assert (P, D) == (1, 1) and irr is not None and sky is not None
 
-    def launch_counts():
-        return {"K1": raster.K1_LAUNCHES, "K2": resolve.K2_LAUNCHES,
-                "K3": shading.K3_LAUNCHES, "K4": raster.K4_LAUNCHES,
-                "K5": resolve.K5_LAUNCHES, "K6": raster.K6_LAUNCHES,
-                "K7": sampling.K7_LAUNCHES}
-
+    launch_counts, reset_counts = (compiled.launch_counts,
+                                   compiled.reset_launches)
     launches = dict.fromkeys(launch_counts(), 0)   # main-path runs only
     profiles = []
-
-    def reset_counts():
-        raster.K1_LAUNCHES = raster.K4_LAUNCHES = resolve.K2_LAUNCHES = 0
-        resolve.K5_LAUNCHES = shading.K3_LAUNCHES = sampling.K7_LAUNCHES = 0
-        raster.K6_LAUNCHES = 0
 
     def add_counts():
         """Adds the counts since reset_counts to ``launches``; returns the
@@ -1321,7 +1741,10 @@ def main(argv: list[str]) -> int:
         queued = len(engine._overflow_inflight)
         engine.drain_monitors()
         add_counts()
-        assert not engine._overflow_inflight and engine.cfg == cfg0, label
+        assert not engine._overflow_inflight and engine.cfg == cfg0, (
+            label, {f.name: (getattr(cfg0, f.name), getattr(engine.cfg, f.name))
+                    for f in dataclasses.fields(cfg0)
+                    if getattr(cfg0, f.name) != getattr(engine.cfg, f.name)})
         sync_free.runs.append(label)
         return queued
 
@@ -1348,11 +1771,13 @@ def main(argv: list[str]) -> int:
     def settle(engine, label):
         """One engine frame, which render() hands out only once the
         capacities held (it renders again while one grew), then one more
-        that must leave them as they are: (last output, renders of the
-        first frame)."""
+        that must leave them as they are and re-renders the atlas: it
+        captures the config's compiled frame and atlas. Returns (last
+        output, renders of the first frame)."""
         f0 = engine.frame_index
         engine.run_frame(0.0)
         renders, cfg1 = engine.frame_index - f0, engine.cfg
+        engine._atlas = None
         out = engine.run_frame(0.0)
         torch.cuda.synchronize()
         assert engine._settled and engine.cfg == cfg1, \
@@ -1424,9 +1849,10 @@ def main(argv: list[str]) -> int:
           f"{int(out4.bin_overflow)}, bigs {int(out4.big_overflow)}", flush=True)
 
     # (a) each kernel against its plain version at the captured shapes
+    # (an eager frame on the engine's arguments: a replay calls no wrapper)
     with capture(raster, "rasterize_stream", lambda *a, **k: "K4"), \
             capture(resolve, "select_eval_stream", lambda *a, **k: "K5"):
-        eng4.run_frame(0.0)
+        framelib.render_frame(*_frame_args(eng4))
     torch.cuda.synchronize()
     (sb, ty4, tx4, th4, tw4, kmax), _ = captured["K4"]
     print(f"K4 1088x1920: stream {sb.rows.shape[0]} rows, {ty4}x{tx4} tiles "
@@ -1517,7 +1943,7 @@ def main(argv: list[str]) -> int:
             tagging(resolve, "_forward_overlay_compact", "K7 sprite"), \
             capture(sampling, "windowed_blend", lambda *a, **k: site[0]), \
             capture(shading, "shade_deferred_fused", lambda *a, **k: "K3 textured"):
-        eng5.run_frame(0.0)
+        framelib.render_frame(*_frame_args(eng5))
     torch.cuda.synchronize()
 
     def blend_check(a, b):
@@ -1613,7 +2039,7 @@ def main(argv: list[str]) -> int:
         if tag == "a":
             with capture(raster, "rasterize_resolve_binned",
                          lambda *a, **k: "K6"):
-                eng5.run_frame(0.0)
+                framelib.render_frame(*_frame_args(eng5))
             torch.cuda.synchronize()
             (bins6, table6, th6, tw6), _ = captured["K6"]
             print(f"K6 {bins6.rows.shape[0] * th6}x{bins6.rows.shape[1] * tw6}: "
@@ -1810,6 +2236,10 @@ def main(argv: list[str]) -> int:
 
     # ---- phase 11: the single-card entry and the offline tools ------------
     entry_tools_phase(dev, smi, reset_counts, add_counts, kernel_vs_plain)
+
+    # ---- phase 12: the compiled frame -------------------------------------
+    compiled_phase(dev, smi, c5, reset_counts, add_counts, sync_free, profile,
+                   profiles)
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),

@@ -256,52 +256,38 @@ def test_camera_binsbig_growth_keeps_cached_atlas():
 # ---- utils/async_fetch ----------------------------------------------------
 
 class _Pending:
-    """A fetch whose copy has not completed until ``finish``."""
+    """A fetch whose copy has not completed until ``finish``, or until
+    ``result`` waits for it (``waited``)."""
 
     def __init__(self, value):
-        self.value, self.finished, self._cancelled = value, False, False
+        self.value, self.finished, self.waited = value, False, False
 
     def finish(self):
         self.finished = True
 
     def done(self):
-        return self.finished or self._cancelled
+        return self.finished
 
     def result(self):
-        assert self.finished and not self._cancelled
+        if not self.finished:
+            self.waited = self.finished = True
         return self.value
-
-    def cancel(self):
-        if self.done():
-            return self._cancelled
-        self._cancelled = True
-        return True
-
-    def cancelled(self):
-        return self._cancelled
 
 
 def test_cpu_fetch_is_ready_at_once():
     t = _i32(3, 1, 4)
     f = async_fetch.submit_fetch(t)
     t[0] = 9                                   # the fetch holds a copy
-    assert f.done() and not f.cancelled()
+    assert f.done()
     assert f.result().tolist() == [3, 1, 4]
-    assert f.cancel() is False and not f.cancelled()
-    assert async_fetch.drop_pending([f]) == [f]
-
-
-def test_drop_pending_keeps_what_is_done():
-    a, b, c = _Pending(1), _Pending(2), _Pending(3)
-    b.finish()
-    assert async_fetch.drop_pending([a, b, c]) == [b]
-    assert a.cancelled() and c.cancelled() and not b.cancelled()
 
 
 def test_steady_frames_hold_four_fetches_in_flight():
-    """A settled engine whose fetches never complete keeps at most four in
-    flight (the older ones are dropped, never applied), applies a fetch
-    once it is done, and drain_monitors leaves the queue empty."""
+    """A settled engine whose fetches do not complete by themselves keeps
+    at most four in flight: a frame that finds four waits for the oldest
+    and applies it (none is dropped, none goes unread). A fetch that is
+    done is applied at once; a growth discards, and counts, the fetches
+    queued under the old envelope; drain_monitors leaves the queue empty."""
     eng = Engine(cfg=RenderConfig(), device="cpu")
     eng._settled = True
     fetches = []
@@ -310,14 +296,18 @@ def test_steady_frames_hold_four_fetches_in_flight():
         fetches.append(f)
         eng._overflow_inflight.append((("tex",), f))
         eng._check_overflow()
-        assert len(eng._overflow_inflight) <= 4
-    assert sum(f.cancelled() for f in fetches) >= 6
+        assert len(eng._overflow_inflight) == min(i + 1, 3)
+    assert [f.waited for f in fetches] == [True] * 7 + [False] * 3
+    assert eng.monitor_waits == 7
     live = [f for _, f in eng._overflow_inflight]
     for f in live:
         f.finish()
     eng._queue_overflow(("tex",), _i32(RenderConfig().tex_block_capacity + 1))
+    late = _Pending([10])
+    eng._overflow_inflight.append((("tex",), late))
     eng._check_overflow()
-    assert not eng._overflow_inflight
+    assert not eng._overflow_inflight and not late.waited
+    assert eng.monitors_discarded == 1 and eng.monitor_waits == 7
     assert eng.cfg.tex_block_capacity > RenderConfig().tex_block_capacity
     assert eng._settled is False              # a growth re-arms the settle
     eng._queue_overflow(("tex",), _i32(5))

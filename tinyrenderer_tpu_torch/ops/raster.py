@@ -197,7 +197,7 @@ def translate_setup_y(setup: TriangleSetup, y0: float) -> TriangleSetup:
     function rounds it (``fma(a_y, y0, c)``); bbox and screen y shift by
     ``-y0``."""
     rows = setup.rows.clone()
-    y = rows.new_tensor(float(y0))
+    y = rows.new_full((), float(y0))
     cols = [x + 2 for x in (_E0X, _E1X, _E2X, _ZX)]
     rows[:, cols] = fma(rows[:, [c - 1 for c in cols]], y, rows[:, cols])
     bbox = setup.bbox.clone()

@@ -53,6 +53,15 @@ class TexturePoolGPU:
     def _decode(self, rows: torch.Tensor) -> torch.Tensor:
         return rows.to(F32) * (1.0 / 255.0) if self.u8 else rows
 
+    @functools.cached_property
+    def level_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(sizes, offsets) (L,) i32 on the pool's device, uploaded once:
+        a frame that indexes them uploads nothing (a captured frame must
+        not)."""
+        dev = self.texels.device
+        return (torch.tensor(self.level_sizes, dtype=I32, device=dev),
+                torch.tensor(self.level_offsets, dtype=I32, device=dev))
+
     def _texel_index(self, yi: torch.Tensor, xi: torch.Tensor,
                      sizes: torch.Tensor) -> torch.Tensor:
         return _morton2(yi, xi) if self.morton else yi * sizes + xi
@@ -232,17 +241,16 @@ def windowed_blend(texels: torch.Tensor, idx: torch.Tensor, fx: torch.Tensor,
 
 def _level_address(pool: TexturePoolGPU, level_i: torch.Tensor):
     """Per-pixel (size, offset) of an int32 level: closed form on a
-    power-of-two chain, else a lookup in the static tables."""
+    power-of-two chain, else a lookup in the pool's level tables."""
     S0 = pool.level_sizes[0]
-    dev = level_i.device
     if all(s == S0 >> i and o == (S0 * S0 - (S0 >> i) ** 2) * 4 // 3
            for i, (s, o) in enumerate(zip(pool.level_sizes,
                                           pool.level_offsets))):
         sizes = torch.full_like(level_i, S0) >> level_i
         return sizes, (S0 * S0 - sizes * sizes) * 4 // 3
     li = level_i.long()
-    return (torch.tensor(pool.level_sizes, dtype=I32, device=dev)[li],
-            torch.tensor(pool.level_offsets, dtype=I32, device=dev)[li])
+    sizes, offsets = pool.level_tables
+    return sizes[li], offsets[li]
 
 
 _HALF = torch.tensor(-0.5)   # texel-centre shift: uv * size - 0.5, fused
@@ -320,7 +328,10 @@ def _blend4(u8: bool, t00, t10, t01, t11, fx, fy) -> torch.Tensor:
     return lerp(lerp(t00, t10, fx), lerp(t01, t11, fx), fy)
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded: a captured frame graph reads these tensors, and one evicted
+# and freed while such a graph lives would hand its memory to another
+# tensor (a handful of shapes a resolution, three phases)
+@functools.lru_cache(maxsize=None)
 def _bayer_threshold(shape2d: tuple, device, phase: int = 0) -> torch.Tensor:
     """(h, w) tiled 4x4 Bayer thresholds in (0, 1); ``phase`` rotates the
     pattern so independent decisions (mip level, u, v) decorrelate.
@@ -618,7 +629,7 @@ def sample_native_pool_mip(pool: NativeTexturePoolGPU, rec: torch.Tensor,
         texel_d2 = torch.maximum(fma(ay, ay, ax * ax), fma(by, by, bx * bx))
         lf = (0.5 * _log2(texel_d2.clamp(min=1e-12))).clamp(min=0.0)
     else:
-        base_size = torch.tensor(float(pool.base_size), device=w0.device)
+        base_size = w0.new_full((), float(pool.base_size))
         lf = level_f + (_log2(w0.clamp(min=1.0)) - _log2(base_size))
     lf = torch.minimum(lf.clamp(min=0.0), top)
     lo = torch.floor(lf).to(I32)

@@ -35,6 +35,7 @@ import torch
 
 from ..config import RenderConfig
 from ..ops import raster, resolve, sampling, shading
+from ..render import compiled
 from ..render.engine import Engine
 from ..scene import demo
 from . import sharded
@@ -59,19 +60,6 @@ def make_engine(world, cfg: RenderConfig, device) -> Engine:
     eng._drain_actions()
     eng._ensure_env()
     return eng
-
-
-def launch_counts() -> dict:
-    return {"K1": raster.K1_LAUNCHES, "K2": resolve.K2_LAUNCHES,
-            "K3": shading.K3_LAUNCHES, "K4": raster.K4_LAUNCHES,
-            "K5": resolve.K5_LAUNCHES, "K6": raster.K6_LAUNCHES,
-            "K7": sampling.K7_LAUNCHES}
-
-
-def reset_counts() -> None:
-    raster.K1_LAUNCHES = raster.K4_LAUNCHES = raster.K6_LAUNCHES = 0
-    resolve.K2_LAUNCHES = resolve.K5_LAUNCHES = 0
-    shading.K3_LAUNCHES = sampling.K7_LAUNCHES = 0
 
 
 @contextlib.contextmanager
@@ -195,11 +183,11 @@ def _run_case(eng: Engine, case: dict, rank: int, world: int, dev,
         if case.get("atlas") == "cached":
             atlas, _, _ = sharded.render_shadow_atlas_sharded(scene, lights,
                                                               cfg, mesh)
-        reset_counts()
+        compiled.reset_launches()
         out = frame(atlas)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        r = {"name": case["name"], "launches": launch_counts(),
+        r = {"name": case["name"], "launches": compiled.launch_counts(),
              "digest": _digest(out), "band_h": cfg.padded_height // mesh.sp}
         if rank == 0:
             r["out"] = {f: getattr(out, f) for f in FIELDS}

@@ -18,10 +18,13 @@ shrinks it again). The protocol is the reference's:
   is rendered again, up to four times, while a capacity grew. The frame
   handed out is the settled one: the headless CLI, a screenshot and the
   viewer's first frame after a preset never ship dropped blocks.
-- a settled frame never waits for its monitors: they are copied to the
-  host without blocking (``utils/async_fetch``) and the oldest fetch that
-  is done is applied by the next frames; at most four are in flight and
-  the rest are dropped. ``drain_monitors()`` is the blocking form.
+- a settled frame does not wait for its own monitors: they are copied to
+  the host without blocking (``utils/async_fetch``) and the fetches that
+  are done are applied, oldest first, by the next frames. At most four are
+  in flight: a frame that finds four waits for the oldest copy (its event,
+  not the whole device) and applies it, so the host runs at most four
+  frames ahead of the card and no monitor goes unread. ``drain_monitors()``
+  is the blocking form.
 
 The environment is the procedural sky or an HDR skybox file
 (``skybox_path``) baked to a cube, and its diffuse irradiance map: a raw
@@ -29,12 +32,19 @@ float16 cache file (``ibl_cache_path``) when one of the right size exists,
 else the embedded map for the procedural sky, else the bake (written to
 the cache path when one is given).
 
+Compiled frames. As the reference jits its frame once per config, a
+settled frame goes through ``frame.compiled_frame(cfg)`` and
+``frame.compiled_shadow_atlas(cfg)``: on the card, graphs captured at the
+config's first settled frame and replayed every frame after
+(``render/compiled.py``). A frame under an unverified config renders
+eagerly, so a config about to grow wastes no capture. The monitors' fetches
+stay outside the graph, after the replay.
+
 Host surfaces: ``notifier`` carries toasts (a capacity grown, a kernel
 reload) to whatever front end is attached, and ``recompile_kernels``
 reloads changed ``ops`` modules and, on the card, rebuilds the CUDA
-library after an edit of ``csrc/`` (``render/reload.py``). The XLA compile
-cache of the reference has no counterpart: nothing here is compiled per
-config.
+library after an edit of ``csrc/`` (``render/reload.py``); any reload drops
+the compiled frames.
 """
 
 from __future__ import annotations
@@ -118,6 +128,10 @@ class Engine:
         self._shadow_big_need = 0
         self._under_count: dict = {}
         self._overflow_inflight: list = []   # (kinds, Fetch), oldest first
+        # fetches waited for with four in flight, and fetches discarded
+        # unread because a capacity changed under them
+        self.monitor_waits = 0
+        self.monitors_discarded = 0
         self.frame_index = 0
         self.last_output: Optional[framelib.FrameOutput] = None
         self.last_frame_ms = 0.0
@@ -266,6 +280,9 @@ class Engine:
         re-enqueue the environment bakes if ``ops.env`` changed."""
         result = self._reloader.reload_if_changed(
             library=self.device.type == "cuda")
+        if result.reloaded:
+            # a captured graph keeps launching what it was captured with
+            reloadlib.invalidate_compiled_frames()
         if any(m != reloadlib.LIBRARY for m in result.reloaded):
             # importlib.reload replaced the modules' classes: the packer's
             # pool and the last pack are instances of the old ones
@@ -353,22 +370,31 @@ class Engine:
             self._repack()
         self._drain_actions()
         env = self._ensure_env()
+        cfg, scene, lights = self.cfg, self._pack.scene, self._pack.lights
+        # a settled frame replays the config's graphs; an unsettled one
+        # (about to grow, maybe) renders eagerly
+        frame = framelib.compiled_frame(cfg) if self._settled else None
+        # the camera through pinned memory, without synchronizing: into the
+        # graph's camera slot, or (an eager frame) to the device
         cam_raw = torch.from_numpy(self.camera.to_raw())
-        if self.device.type == "cuda":   # an upload that does not synchronize
+        if self.device.type == "cuda":
             cam_raw = cam_raw.pin_memory()
-        cam_raw = cam_raw.to(self.device, non_blocking=True)
+        if frame is None:
+            cam_raw = cam_raw.to(self.device, non_blocking=True)
         t0 = time.perf_counter()
-        if (self._atlas is None and self.cfg.enable_shadows
-                and self.cfg.num_shadow_views > 0):
+        if (self._atlas is None and cfg.enable_shadows
+                and cfg.num_shadow_views > 0):
             # camera-independent: rendered once per scene edit
-            self._atlas, s_ovf, s_big = framelib.render_shadow_atlas(
-                self._pack.scene, self._pack.lights, self.cfg)
+            self._atlas, s_ovf, s_big = (
+                framelib.compiled_shadow_atlas(cfg)(scene, lights)
+                if self._settled
+                else framelib.render_shadow_atlas(scene, lights, cfg))
             self._queue_overflow(("shadow", "binsbig"),
                                  torch.stack([s_ovf, s_big]))
-        out = framelib.render_frame(
-            self._pack.scene, self._packer.pool_for(self.cfg, self.device),
-            self._pack.lights, cam_raw, self.params, env, self.cfg,
-            self._atlas)
+        args = (scene, self._packer.pool_for(cfg, self.device), lights,
+                cam_raw, self.params, env)
+        out = (frame(*args, self._atlas) if frame is not None
+               else framelib.render_frame(*args, cfg, self._atlas))
         # dispatch time: the device may still be running the frame
         self.last_frame_ms = (time.perf_counter() - t0) * 1e3
         self.last_output = out
@@ -407,25 +433,17 @@ class Engine:
 
     def _check_overflow(self, wait: bool = False) -> None:
         """Apply queued monitor fetches, oldest first, as far as they are
-        done; never blocks unless ``wait`` (tests: each fetch is waited
-        for, with the shrink accounting, unlike ``_settle_sync``). With
-        four or more in flight and the oldest not done, the fetches not
-        done are dropped: newer frames report the same monitors."""
+        done. With four in flight the oldest is waited for (its copy's
+        event) and applied: the host runs at most four frames ahead of the
+        card. ``wait`` (tests) waits for each fetch, with the shrink
+        accounting, unlike ``_settle_sync``."""
         while self._overflow_inflight:
             kinds, head = self._overflow_inflight[0]
-            if wait and not head.cancelled():
-                head.result()
-            if not head.done():
-                if len(self._overflow_inflight) >= 4:
-                    kept = set(map(id, async_fetch.drop_pending(
-                        [f for _, f in self._overflow_inflight])))
-                    self._overflow_inflight = [
-                        (k, f) for k, f in self._overflow_inflight
-                        if id(f) in kept]
-                break
+            if not (wait or head.done()):
+                if len(self._overflow_inflight) < 4:
+                    break
+                self.monitor_waits += 1
             self._overflow_inflight.pop(0)
-            if head.cancelled():
-                continue
             if self._apply_monitor_values(kinds, head.result()):
                 return
 
@@ -435,8 +453,6 @@ class Engine:
         evidence of a long run under low occupancy."""
         while self._overflow_inflight:
             kinds, head = self._overflow_inflight.pop(0)
-            if head.cancelled():
-                continue
             if self._apply_monitor_values(kinds, head.result(),
                                           shrink=False):
                 return True
@@ -507,6 +523,7 @@ class Engine:
                 self._under_count[kind] = 0
         if grown:
             self.cfg = replace(self.cfg, **grown)
+            self.monitors_discarded += len(self._overflow_inflight)
             self._overflow_inflight.clear()
             self._under_count.clear()
             return True

@@ -40,12 +40,17 @@ and select + eval. ``use_pallas=False`` selects the reference's kernel-free
 plain versions: a CUDA tensor still launches the kernels, whose plain
 versions equal the reference's jnp paths.
 
-The environment bakes the engine runs once (:func:`bake_env_cubemap`,
-:func:`bake_irradiance`, :func:`project_irradiance_sh`) close the module.
+:func:`compiled_frame` and :func:`compiled_shadow_atlas` are the
+reference's jitted functions: one :class:`compiled.CompiledFn` a static
+config (a CUDA graph on the card, captured once and replayed), the last 8
+configs cached. The environment bakes the engine runs once
+(:func:`bake_env_cubemap`, :func:`bake_irradiance`,
+:func:`project_irradiance_sh`) close the module.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -55,6 +60,7 @@ from .. import config
 from ..ops import compact, post, raster, resolve, sampling, shading, shadows
 from ..ops import env as envops
 from ..ops.fp import fma
+from . import compiled
 from .scene_gpu import LightsGPU, SceneGPU
 
 F32 = torch.float32
@@ -164,6 +170,16 @@ def render_shadow_atlas(scene: SceneGPU, lights: LightsGPU,
     if cfg.shadow_bf16:
         win = win.to(torch.bfloat16)
     return win, overflow, big
+
+
+@functools.lru_cache(maxsize=8)
+def compiled_shadow_atlas(cfg: config.RenderConfig) -> compiled.CompiledFn:
+    """``fn(scene, lights) -> (atlas, shadow_overflow, big_overflow)``:
+    :func:`render_shadow_atlas` under ``cfg``, compiled (cached per
+    config)."""
+    def fn(scene, lights):
+        return render_shadow_atlas(scene, lights, cfg)
+    return compiled.CompiledFn(fn)
 
 
 def use_fused_shading(cfg: config.RenderConfig) -> bool:
@@ -570,6 +586,18 @@ def _render_frame_fused(scene: SceneGPU, pool: sampling.TexturePoolGPU,
                        tex_overflow=torch.stack([tex_needed, fwd_needed]),
                        big_overflow=big_overflow, shadow_blocks=shadow_blocks,
                        stream_overflow=_sovf(m_bins), sky_blocks=sky_blocks)
+
+
+@functools.lru_cache(maxsize=8)
+def compiled_frame(cfg: config.RenderConfig) -> compiled.CompiledFn:
+    """``fn(scene, pool, lights, camera_raw, params, env, atlas=None)``:
+    :func:`render_frame` under ``cfg``, compiled (cached per config, the
+    analog of the reference's pipeline cache). ``atlas`` None renders the
+    shadow atlas inline."""
+    def fn(scene, pool, lights, camera_raw, params, env, atlas=None):
+        return render_frame(scene, pool, lights, camera_raw, params, env, cfg,
+                            atlas)
+    return compiled.CompiledFn(fn)
 
 
 # ---- the environment bakes the engine runs once -----------------------------

@@ -16,9 +16,10 @@ the "shaders" are two things:
   serving. This is the old pipeline that keeps running, not a fallback to
   the plain versions.
 
-The JAX package also drops its cached jitted frames after a reload
-(``invalidate_compiled_frames``). PyTorch runs eagerly and looks every
-function up at call time, so there is nothing to invalidate.
+A graph captured before a reload goes on launching what it captured: the
+old modules' glue and the old library's kernels. So every reload drops the
+compiled frames (:func:`invalidate_compiled_frames`), as the reference
+drops its jitted ones, and the next settled frame captures anew.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from dataclasses import dataclass, field
 from typing import List
 
 from .. import kernels
+from . import frame as framelib
 
 log = logging.getLogger(__name__)
 
@@ -111,3 +113,16 @@ class KernelReloader:
                 result.error = f"{LIBRARY}: {e}"
                 log.error("kernel library rebuild failed: %s", result.error)
         return result
+
+
+def invalidate_compiled_frames() -> None:
+    """Drop every compiled frame and shadow atlas, with their graphs and
+    memory pools: the next settled frame captures through the reloaded
+    modules and library. The reference clears ``compiled_frame`` (and
+    ``compiled_sharded_frame``) but keeps ``compiled_shadow_atlas``; a
+    graph captured before ``kernels.reload()`` would keep launching the old
+    library's kernels, so the atlas cache goes too. The port's sharded
+    frame is a plain callable (gloo's collectives cannot be captured):
+    nothing of it is cached."""
+    framelib.compiled_frame.cache_clear()
+    framelib.compiled_shadow_atlas.cache_clear()

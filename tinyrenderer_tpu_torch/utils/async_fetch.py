@@ -15,17 +15,13 @@ in PyTorch's idiom:
 - :meth:`Fetch.done` polls that event; :meth:`Fetch.result` waits on the
   event only, never on the whole device, and returns numpy.
 - a CPU tensor's value is ready at once.
-- :func:`drop_pending` keeps the fetches that are done and drops the rest.
-  An enqueued copy cannot be taken back, so a dropped fetch is one whose
-  value is never applied; a newer frame reports the same monitors.
 
 :class:`Fetch` has the part of ``concurrent.futures.Future`` that the
-engine uses: ``done``, ``result``, ``cancel`` and ``cancelled``.
+engine uses: ``done`` and ``result``.
 """
 
 from __future__ import annotations
 
-from concurrent.futures import CancelledError
 from typing import Optional
 
 import numpy as np
@@ -42,35 +38,19 @@ class Fetch:
         self._value = value
         self._host = host
         self._event = event
-        self._cancelled = False
 
     def done(self) -> bool:
-        return (self._cancelled or self._value is not None
-                or self._event.query())
+        return self._value is not None or self._event.query()
 
     def result(self) -> np.ndarray:
         """The fetched values; waits for this copy's event if it has not
-        completed. Raises ``CancelledError`` for a dropped fetch."""
-        if self._cancelled:
-            raise CancelledError()
+        completed."""
         if self._value is None:
             if not self._event.query():
                 self._event.synchronize()
             self._value = self._host.numpy().copy()
             self._host = self._event = None    # the pinned block goes back
         return self._value
-
-    def cancel(self) -> bool:
-        """Drop a fetch that is not done: its value is never applied.
-        False (and nothing changes) when it is done."""
-        if self.done():
-            return self._cancelled
-        self._cancelled = True
-        self._host = self._event = None
-        return True
-
-    def cancelled(self) -> bool:
-        return self._cancelled
 
 
 def submit_fetch(t: torch.Tensor) -> Fetch:
@@ -86,9 +66,3 @@ def submit_fetch(t: torch.Tensor) -> Fetch:
     event = torch.cuda.Event()
     event.record(stream)
     return Fetch(host=host, event=event)
-
-
-def drop_pending(fetches: list) -> list:
-    """Drop the fetches that are not done; keep the rest (in order).
-    Bounds the backlog when the device falls behind the frame loop."""
-    return [f for f in fetches if f.done() or not f.cancel()]
