@@ -99,7 +99,17 @@ runs, each phase asserting or letting its exception propagate:
    eager frame on its arguments, the capture's host ms and memory, steady
    frames eagerly and compiled with equal launch counts and no
    synchronization; demo.lvl's editor edit frames both ways; (c) the
-   compiled caches dropped by phase 8c's library rebuild and captured anew.
+   compiled caches dropped by phase 8c's library rebuild and captured anew;
+13. the port's benchmark (:func:`bench_phase`): (a) BASELINE.json's
+   config 1 (forward-only 800x600) and config 2 (4 point + 1 directional
+   light, 25 shadow views) as ``tinyrenderer_tpu_torch/bench.py`` builds
+   them, each settled, timed, run under the sync debug mode, rendered
+   through the kernels and through the plain versions, and compiled
+   bit-equal to eager over an orbit; (b) config 5, the stress world,
+   through the kernels and through the plain versions, then its shrink
+   hysteresis and whether a shrunk capacity grows back on an orbit; (c)
+   the golden images checked on the card; (d) ``python -m
+   tinyrenderer_tpu_torch.bench --budget-s 300`` and its one JSON line.
 
 Every engine frame is a settled one: ``Engine.render`` reads the monitors
 of a frame under a config it has not verified and renders it again
@@ -159,12 +169,10 @@ import os
 import re
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LEVEL = os.path.join(ROOT, "levels", "demo.lvl")
@@ -362,40 +370,6 @@ def _same_frame(label: str, a, b) -> None:
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
         assert x.dtype == y.dtype and torch.equal(x, y), (label, f.name)
-
-
-def _decode_png(data: bytes):
-    """An 8-bit RGB / RGBA PNG as an (H, W, C) uint8 array, with ``zlib``
-    (the card's machine has no PIL): scanline filters 0 (None, the
-    ``zlib`` encoder's) and 1 (Sub, the native encoder's)."""
-    import numpy as np
-    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
-    pos, idat, head = 8, [], None
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            head = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-    w, h, depth, ctype, _, _, interlace = head
-    assert depth == 8 and ctype in (2, 6) and interlace == 0, head
-    c = 4 if ctype == 6 else 3
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, 1 + w * c)
-    out = np.empty((h, w * c), np.uint8)
-    for y in range(h):
-        f, row = raw[y, 0], raw[y, 1:]
-        if f == 0:
-            cur = row
-        elif f == 1:
-            cur = (np.cumsum(row.reshape(w, c), axis=0, dtype=np.int64)
-                   % 256).astype(np.uint8).reshape(-1)
-        else:
-            raise ValueError(f"PNG filter {f} is not decoded here")
-        out[y] = cur
-    return out.reshape(h, w, c)
 
 
 def _pixel_of(pick, oid: int) -> tuple[float, float]:
@@ -686,7 +660,7 @@ def editor_phase(dev, smi: str, cfg, viewer_cfg, edits: int, cli_args: list,
     try:
         reset_counts()
         png = get("/frame.png")
-        img = _decode_png(png)
+        img = image_io.decode_png(png)
         assert np.array_equal(img, vapp.engine.present_numpy())
         assert img.shape == (viewer_cfg.height, viewer_cfg.width, 3)
         with srv.lock:
@@ -696,14 +670,14 @@ def editor_phase(dev, smi: str, cfg, viewer_cfg, edits: int, cli_args: list,
         post("/event", [{"type": "button", "button": "left", "pressed": p,
                          "x": x, "y": y} for p in (True, False)])
         assert json.loads(get("/state"))["selected"] == voi
-        before = _decode_png(get("/frame.png")).astype(np.float64).mean()
+        before = image_io.decode_png(get("/frame.png")).mean(dtype=np.float64)
         post("/set", {"name": "global_params", "path": ["exposure"],
                       "value": 4.0})
-        after = _decode_png(get("/frame.png")).astype(np.float64).mean()
+        after = image_io.decode_png(get("/frame.png")).mean(dtype=np.float64)
         assert after > before + 5, (before, after)
         post("/action", {"action": "set_config", "preset": "performance"})
         assert vapp.engine.cfg.texture_filter == "stochastic"
-        assert _decode_png(get("/frame.png")).shape == img.shape
+        assert image_io.decode_png(get("/frame.png")).shape == img.shape
 
         def round_trips():
             ms = []
@@ -749,8 +723,7 @@ def editor_phase(dev, smi: str, cfg, viewer_cfg, edits: int, cli_args: list,
         stats = [ln for ln in res.stdout.splitlines()
                  if ln.startswith("visible objects:")]
         assert stats, res.stdout
-        with open(out_png, "rb") as f:
-            shape = _decode_png(f.read()).shape
+        shape = image_io.load_png(out_png).shape
     print(f"8e CLI {' '.join(cli_args)}: rc 0, {shape[1]}x{shape[0]} PNG, "
           f"{stats[0]}; {cli_s:.1f} s with the process start ({smi})",
           flush=True)
@@ -1488,6 +1461,249 @@ def compiled_phase(dev, smi: str, textured_cfg, reset_counts, add_counts,
           flush=True)
     print(f"12 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out_rows
+
+
+def bench_phase(dev, smi: str, settle, timed_frames, kernel_vs_plain,
+                reset_counts, add_counts, poses: int = 8) -> dict:
+    """Phase 13: the port's benchmark (``tinyrenderer_tpu_torch/bench.py``).
+    (a) BASELINE.json's config 1 (forward-only 800x600, shadows and IBL
+    off) and config 2 (1080p, 4 point + 1 directional light: 25 shadow
+    views, four billboards through the overlay) as the bench builds them
+    (``bench.build_engine``): each settled, ten timed frames with the
+    launch counts from 0 and ten replays under
+    ``set_sync_debug_mode("error")`` (``timed_frames``), the frame through
+    the kernels and through the plain versions (pick ids equal,
+    edge-aware compare; config 2's 25 views rendered inline; its K3, with
+    four point lights, held against its plain version), an orbit of
+    ``poses`` compiled frames bit-equal to the eager ``render_frame`` on
+    their arguments with no new capture (after an orbit that grows
+    nothing), and the compiled atlas bit-equal to the eager one. (b) The
+    stress world (bench.py's config 5), settled: its frame through the
+    kernels and through the plain versions (the atlas inline), then the
+    shrink hysteresis: a steady run past ``Engine.SHRINK_AFTER`` frames,
+    then a drained orbit; what shrank and what grew back are printed. (c)
+    ``bench.verify_goldens()`` on the card: the four cases whose scenes the
+    repository holds pass, the two on test.lvl report ``no-level`` (no
+    level is given). (d) ``python -m tinyrenderer_tpu_torch.bench
+    --budget-s 300`` in a process of its own: one JSON line whose headline
+    is set, every item present, none skipped or in error but the
+    fidelity's missing level and the CPU ratio without a cache. Returns
+    the bench's line."""
+    import numpy as np
+    import torch
+    from tinyrenderer_tpu_torch import bench
+    from tinyrenderer_tpu_torch.ops import shading
+    from tinyrenderer_tpu_torch.render import frame as framelib
+    from tinyrenderer_tpu_torch.render import reload as reloadlib
+
+    t_phase = time.perf_counter()
+
+    def pose(eng, k, n):
+        """``tools/orbit.py``'s camera: radius 16, elevation 8."""
+        a = 2.0 * np.pi * k / n
+        eng.camera.position = np.array([16.0 * np.cos(a), 8.0,
+                                        16.0 * np.sin(a)], np.float32)
+        eng.camera.look_at(np.zeros(3, np.float32))
+
+    def compiled_equals_eager(eng, label):
+        """An orbit that grows nothing (drained), then the orbit again:
+        each compiled engine frame equals the eager frame on its
+        arguments, no new capture; the compiled atlas equals the eager
+        one."""
+        for _ in range(4):
+            cfg = eng.cfg
+            for k in range(poses):
+                pose(eng, k, poses)
+                eng.run_frame(0.0)
+                eng.drain_monitors()
+            if eng.cfg == cfg:
+                break
+        assert eng._settled and eng.cfg == cfg, label
+        cf = framelib.compiled_frame(cfg)
+        n = len(cf._entries)
+        for k in range(poses):
+            pose(eng, k, poses)
+            _same_frame(f"13a {label} pose {k}", eng.run_frame(0.0),
+                        framelib.render_frame(*_frame_args(eng)))
+        assert eng.cfg == cfg and len(cf._entries) == n, (label, "captured")
+        if eng._atlas is not None:
+            scene, lights = eng._pack.scene, eng._pack.lights
+            for x, y in zip(framelib.compiled_shadow_atlas(cfg)(scene, lights),
+                            framelib.render_shadow_atlas(scene, lights, cfg)):
+                assert x.dtype == y.dtype and torch.equal(x, y), (label,
+                                                                  "atlas")
+
+    # (a) configs 1 and 2
+    for label, kw, names in (
+            ("config 1, forward-only 800x600", dict(forward=True),
+             ("K1", "K2", "K3")),
+            ("config 2, 4 point + 1 directional light", dict(multilight=True),
+             ("K1", "K2", "K3", "K7"))):
+        t_run = time.perf_counter()
+        eng = bench.build_engine(device=dev, **kw)
+        settle(eng, label)
+        c = eng.cfg
+        if kw.get("forward"):
+            assert c.forward_only and not c.enable_shadows
+            assert not c.enable_ibl and (c.width, c.height) == (800, 600)
+        else:
+            assert (c.num_point_lights, c.num_directional_lights) == (4, 1)
+            assert c.num_shadow_views == 25 and c.has_forward
+            assert framelib.use_fused_shading(c), label
+        out, frame_ms, per_frame, run, peak_mb = timed_frames(eng, names,
+                                                              label)
+        assert eng.cfg == c, f"{label}: capacities moved in the timed frames"
+        if kw.get("forward"):
+            assert all(p == (1, 1, 0) for p in per_frame), per_frame
+        else:
+            # the first frame re-renders the 25 views; every frame rasters
+            # the main view and the overlay, shades, and samples the four
+            # billboards' sprites
+            assert per_frame[0][:3] == (27, 1, 1), per_frame[0]
+            assert all(p[:3] == (2, 1, 1) and p[3] >= 1
+                       for p in per_frame[1:]), per_frame
+            assert int(out.tex_overflow[1]) > 0, "no overlay tile"
+        pick = out.pick_id
+        assert out.sdr.shape == (c.height, c.width, 3)
+        assert torch.isfinite(out.hdr).all() and (pick == 0).any()
+        assert len(torch.unique(pick)) > 20, label
+        steady = statistics.median(frame_ms[1:])
+        k3 = ""
+        if not kw.get("forward"):
+            # K3 with four point lights (its per-light constants, the gate
+            # planes (num_point + i) * HW), at the shapes the frame gives
+            # it, against its plain version
+            args = []
+            inner = shading.shade_deferred_fused
+
+            def record(*a):
+                args.append(a)
+                return inner(*a)
+            with _patched(shading, "shade_deferred_fused", record):
+                framelib.render_frame(*_frame_args(eng))
+            tid, outf, outh, rec, gates, sky, campos, sl, P, D, irr = args[0]
+            assert (P, D) == (4, 1) and gates.shape[0] == 5, gates.shape
+            a = shading.shade_deferred_fused(*args[0])
+            b = shading.shade_fused_ref(
+                tid, outf, outh, rec, gates, sky,
+                shading.pack_shading_consts(campos, sl, P, D, irr), P, D,
+                irr is not None)
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+            assert torch.isfinite(a).all()
+            k3 = (f"; K3 with P=4 D=1 against its plain version: max abs "
+                  f"err {(a - b).abs().max().item():.3g} (rtol 1e-4, atol "
+                  f"1e-5)")
+        kernel_vs_plain(f"13a {label}", lambda: framelib.render_frame(
+            *_frame_args(eng)[:-1]))       # the atlas inline, both ways
+        compiled_equals_eager(eng, label)
+        print(f"13a {label} {c.width}x{c.height} ({c.num_shadow_views} "
+              f"shadow views): launches {names} per frame {per_frame}, "
+              f"frame ms {[round(t, 3) for t in frame_ms]}, median of the "
+              f"steady 9: {steady:.3f} ms, peak memory {peak_mb:.1f} MiB, "
+              f"objects {len(torch.unique(pick)) - 1}; kernels = plain, "
+              f"{poses} orbit frames compiled = eager{k3} "
+              f"({time.perf_counter() - t_run:.1f} s; {smi})", flush=True)
+        del eng, out
+
+    # (b) config 5: kernels against plain versions, then the shrink
+    # hysteresis: does a shrunk capacity grow back?
+    t_run = time.perf_counter()
+    eng = bench.build_engine(stress=True, device=dev)
+    settle(eng, "stress world")
+    out = kernel_vs_plain("13b config 5, the stress world", lambda: (
+        framelib.render_frame(*_frame_args(eng)[:-1])))
+    assert len(torch.unique(out.pick_id)) > 100, "13b stress world"
+    print(f"13b config 5 {eng.cfg.width}x{eng.cfg.height}, "
+          f"{int(eng._pack.counts['instances'])} instances, "
+          f"{eng.cfg.num_shadow_views} shadow views: kernels = plain "
+          f"({time.perf_counter() - t_run:.1f} s; {smi})", flush=True)
+    cfg0, moved_at = eng.cfg, None
+    for i in range(2 * eng.SHRINK_AFTER + 60):
+        eng.run_frame(0.0)
+        if moved_at is None and eng.cfg != cfg0:
+            moved_at = i + 1
+    eng.drain_monitors()
+    cfg1 = eng.cfg
+    frames = 30
+    for k in range(frames):
+        pose(eng, k, frames)
+        out = eng.run_frame(0.0)
+        eng.drain_monitors()
+    assert eng._settled and torch.isfinite(out.hdr).all()
+
+    def diff(a, b):
+        return {f.name: (getattr(a, f.name), getattr(b, f.name))
+                for f in dataclasses.fields(a)
+                if getattr(a, f.name) != getattr(b, f.name)}
+    print(f"13b stress world {cfg0.width}x{cfg0.height}, "
+          f"{2 * eng.SHRINK_AFTER + 60} steady "
+          f"frames: config moved at frame {moved_at}: {diff(cfg0, cfg1)}; "
+          f"then a drained orbit of {frames} poses changed "
+          f"{diff(cfg1, eng.cfg)} (SHRINK_AFTER {eng.SHRINK_AFTER}; {smi})",
+          flush=True)
+    del eng, out
+
+    # (c) the goldens on the card
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    goldens = bench.verify_goldens(device=dev)
+    run = add_counts()
+    in_repo = ("demo", "demo_textured", "demo_fused", "demo_bf16")
+    assert all(goldens[k]["status"] == "pass" for k in in_repo), goldens
+    assert all(goldens[k]["status"] == "no-level"
+               for k in ("test_lvl", "default")), goldens
+    print(f"13c goldens through the kernels: {json.dumps(goldens)}; launches "
+          f"{run} ({time.perf_counter() - t0:.1f} s; {smi})", flush=True)
+
+    # (d) the bench in a process of its own, from empty caches
+    reloadlib.invalidate_compiled_frames()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "tinyrenderer_tpu_torch.bench",
+                          "--budget-s", "300"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=420)
+    bench_s = time.perf_counter() - t0
+    assert res.returncode == 0, (res.returncode, res.stderr[-4000:])
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1, res.stdout[-4000:]
+    line = json.loads(lines[0])
+    extra = line["extra"]
+    assert line["value"] > 0 and "vs_baseline" not in line, line
+    assert extra["device"] == smi and extra["loop_scaling_ok"], extra
+    configs = extra["configs"]
+    assert set(configs) == {"config1_forward", "config2_multilight",
+                            "config3_deferred_1080p", "config4_editor",
+                            "config5_stress", "cpu_raster_ratio"}, configs
+    for key, v in configs.items():
+        if key == "cpu_raster_ratio" and "value" not in v:
+            assert "no CPU cache" in v["error"], v
+            continue
+        assert v.get("value") is not None and "error" not in v, (key, v)
+        assert "skipped" not in v, (key, v)
+    for key in ("config1_forward", "config2_multilight", "config5_stress"):
+        assert configs[key]["extra"]["device"] == smi, configs[key]
+    assert configs["config2_multilight"]["extra"]["shadow_views"] == 25
+    assert configs["config4_editor"]["lvl_roundtrip"] is True
+    assert extra["raster_throughput"]["mtris_per_s"] > 0, extra
+    assert extra["parity"]["value"] is not None, extra["parity"]
+    assert extra["performance_preset_ms"] is not None, extra
+    fid = extra["fidelity"]
+    assert "--level" in fid.get("error", ""), fid
+    assert "no-level" in line["metric"], line["metric"]
+    gold = extra["tpu_golden"]
+    assert all(gold[k]["status"] == "pass" for k in in_repo), gold
+    assert all(gold[k]["status"] == "no-level"
+               for k in ("test_lvl", "default")), gold
+    assert "skipped" not in json.dumps(line), line
+    print(f"13d python -m tinyrenderer_tpu_torch.bench --budget-s 300: rc 0 "
+          f"in {bench_s:.1f} s, its line ({len(lines[0])} bytes): "
+          f"{lines[0]}", flush=True)
+    print("13d bench stderr tail: "
+          + " | ".join(res.stderr.strip().splitlines()[-14:]), flush=True)
+    print(f"13 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return line
 
 
 def main(argv: list[str]) -> int:
@@ -2240,6 +2456,10 @@ def main(argv: list[str]) -> int:
     # ---- phase 12: the compiled frame -------------------------------------
     compiled_phase(dev, smi, c5, reset_counts, add_counts, sync_free, profile,
                    profiles)
+
+    # ---- phase 13: the port's benchmark -----------------------------------
+    bench_phase(dev, smi, settle, timed_frames, kernel_vs_plain, reset_counts,
+                add_counts)
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),

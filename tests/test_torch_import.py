@@ -27,7 +27,7 @@ HOST_MODULES = ["tinyrenderer_tpu_torch." + m for m in (
     "utils.notify", "utils.containers", "utils.image_io", "viewer.server",
     "viewer.__main__", "__main__", "parallel.sharded", "parallel.launch",
     "parallel.__main__", "tools.orbit", "utils.async_fetch", "entry",
-    "tools.gen_default_ibl", "tools.fidelity_report")]
+    "tools.gen_default_ibl", "tools.fidelity_report", "bench")]
 
 
 def _forbidden(name: str) -> bool:
@@ -52,7 +52,8 @@ def test_port_never_imports_jax():
             "tinyrenderer_tpu_torch.tools.orbit",
             "tinyrenderer_tpu_torch.entry",
             "tinyrenderer_tpu_torch.tools.gen_default_ibl",
-            "tinyrenderer_tpu_torch.tools.fidelity_report"} <= set(PORT_MODULES)
+            "tinyrenderer_tpu_torch.tools.fidelity_report",
+            "tinyrenderer_tpu_torch.bench"} <= set(PORT_MODULES)
     assert "tinyrenderer_tpu_torch.shared" not in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"

@@ -1,10 +1,12 @@
 """Image output helpers (the swapchain/present + screenshot analog).
 
-The reference writes and encodes PNGs with PIL; the card's machine has no
-PIL, so the port encodes with the repository's native encoder
+The reference writes, encodes and reads PNGs with PIL; the card's machine
+has no PIL, so the port encodes with the repository's native encoder
 (``native/asset_loader.cpp`` ``tr_encode_png``: Sub filter + zlib level 1,
 through ``assets/native``) and, where that library cannot be built, with
-the standard library (``zlib`` + ``struct``: filter 0, zlib level 1).
+the standard library (``zlib`` + ``struct``: filter 0, zlib level 1), and
+reads PNGs (the golden images, the viewer's frames) with ``zlib`` and
+numpy: :func:`decode_png`, :func:`load_png`.
 """
 
 from __future__ import annotations
@@ -55,6 +57,81 @@ def save_png(path: str, img: np.ndarray) -> None:
     """img: (H, W, 3|4) uint8 or float in [0, 1]."""
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter_row(f: int, row: np.ndarray, prev: np.ndarray,
+                  c: int) -> np.ndarray:
+    """One scanline's bytes with its filter ``f`` undone, given the
+    previous unfiltered scanline (zeros above the first): 0 None, 1 Sub,
+    2 Up, 3 Average, 4 Paeth (the PNG specification's section 9)."""
+    if f == 0:
+        return row
+    if f == 1:
+        return (np.cumsum(row.reshape(-1, c), axis=0, dtype=np.int64)
+                % 256).astype(np.uint8).reshape(-1)
+    if f == 2:
+        return row + prev           # uint8 arithmetic wraps mod 256
+    if f not in (3, 4):
+        raise ValueError(f"unknown PNG filter type {f}")
+    # Average and Paeth depend on the byte to the left: byte by byte
+    cur = bytearray(row.tobytes())
+    up = prev.tobytes()
+    for i in range(len(cur)):
+        left = cur[i - c] if i >= c else 0
+        if f == 3:
+            cur[i] = (cur[i] + ((left + up[i]) >> 1)) & 0xFF
+        else:
+            corner = up[i - c] if i >= c else 0
+            cur[i] = (cur[i] + _paeth(left, up[i], corner)) & 0xFF
+    return np.frombuffer(bytes(cur), np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes of an 8-bit RGB or RGBA image, not interlaced, to an (H, W,
+    3|4) uint8 array, with ``zlib`` and numpy (the card's machine has no
+    PIL): every scanline filter (None, Sub, Up, Average, Paeth)."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, head = 8, [], None
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if head is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = head
+    if depth != 8 or ctype not in (2, 6) or interlace != 0:
+        raise ValueError(f"only 8-bit RGB/RGBA PNGs without interlace are "
+                         f"read (depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace})")
+    c = 4 if ctype == 6 else 3
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + w * c)
+    out = np.empty((h, w * c), np.uint8)
+    prev = np.zeros(w * c, np.uint8)
+    for y in range(h):
+        prev = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev, c)
+    return out.reshape(h, w, c)
+
+
+def load_png(path: str) -> np.ndarray:
+    """The PNG file at ``path`` as :func:`decode_png` reads it."""
+    with open(path, "rb") as f:
+        return decode_png(f.read())
 
 
 def save_pfm_like_npy(path: str, img: np.ndarray) -> None:
