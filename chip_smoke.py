@@ -109,7 +109,16 @@ runs, each phase asserting or letting its exception propagate:
    through the kernels and through the plain versions, then its shrink
    hysteresis and whether a shrunk capacity grows back on an orbit; (c)
    the golden images checked on the card; (d) ``python -m
-   tinyrenderer_tpu_torch.bench --budget-s 300`` and its one JSON line.
+   tinyrenderer_tpu_torch.bench --budget-s 300`` and its one JSON line;
+14. the measurement tools (:func:`tools_phase`): (a) the stage ledgers of
+   the headline, config 2 and the high-poly world, each prefix through
+   the kernels equal to the plain versions and the full row's frame
+   bit-equal to ``Engine.run_frame``'s compiled frame; (b) the op
+   rankings (``trace_top``) of the headline, the high-poly world and
+   config 2's shadow atlas, which name the kernels of each; (c) a config
+   A/B and the ``gatemin`` group; (d) the three op studies with their
+   equality checks; (e) the headline's CUDA graph as a DOT file holding
+   the frame's kernels.
 
 Every engine frame is a settled one: ``Engine.render`` reads the monitors
 of a frame under a config it has not verified and renders it again
@@ -176,6 +185,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LEVEL = os.path.join(ROOT, "levels", "demo.lvl")
+OUT_DIR = os.path.join(ROOT, "chiprun_out")   # git-ignored outputs
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOPS = 67e12
@@ -1706,6 +1716,229 @@ def bench_phase(dev, smi: str, settle, timed_frames, kernel_vs_plain,
     return line
 
 
+def tools_phase(dev, smi: str, reset_counts, add_counts) -> dict:
+    """Phase 14: the measurement tools (``tinyrenderer_tpu_torch/tools``).
+    (a) ``bench_stages.stage_ledger`` on the headline (the demo world at
+    1920x1080, BASELINE config 3) and on config 2 (4 point + 1 directional
+    light, 25 shadow views), and ``profile_highpoly``'s ledger on
+    ``build_highpoly_world(9)``, 3 rounds each, the rows printed. Before
+    each ledger, every prefix is computed through the kernels and through
+    the plain versions: every prefix's tensors equal (triangle ids, depth,
+    the select planes, the G-buffer: the bit-equality phases 1-5 hold K1,
+    K2, K4, K5 and K7 to), the full frames' pick ids equal and their
+    images through the edge-aware comparison (K3's bar), and the full
+    prefix's frame bit-equal to ``Engine.run_frame``'s compiled frame. The
+    ledger's full row is timed beside a body returning one pixel. (b)
+    ``trace_top`` on the headline: the ranking names K1's, K2's and K3's
+    kernels, and on the high-poly world K4's and K5's; config 2's compiled
+    shadow atlas ranked, with the port's lines that launch its three
+    costliest entries (``dump_graph.op_sources``, an eager atlas). (c)
+    one ``ab_frame --cfg`` pair
+    (``sky_block_capacity=2048``) and ``profile_frame``'s ``gatemin``
+    group, with the peak MiB. (d) ``bench_binning``, ``bench_sky_blocks``
+    and ``bench_gather_pcf`` at the reference tools' sizes, each with its
+    own equality check. (e) ``dump_graph`` on the headline: the DOT file
+    holds the frame's K1, K2, K3 and K7 kernel nodes. Each run's launches
+    are counted from 0 and added to the kernels line; the prefix checks
+    are not. Returns what it measured (also written to
+    ``chip_smoke_tools.json`` in ``OUT_DIR``)."""
+    import gc
+    import torch
+    from tinyrenderer_tpu_torch import bench
+    from tinyrenderer_tpu_torch.parallel import jobs as pjobs
+    from tinyrenderer_tpu_torch.tools import (
+        ab_frame, bench_binning, bench_gather_pcf, bench_sky_blocks,
+        bench_stages, dump_graph, profile_frame, profile_highpoly, timing,
+        trace_top)
+    from tinyrenderer_tpu_torch.utils import verify
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+    rounds = 3
+
+    def prefixes_equal(label, fns, eng):
+        """Each prefix through the kernels and through the plain versions
+        (see the phase notes); the full prefix against run_frame."""
+        cam = timing.camera(eng)
+        fast = {s: fn(cam) for s, fn in fns.items()}
+        with pjobs.plain_versions():
+            plain = {s: fn(cam) for s, fn in fns.items()}
+        torch.cuda.synchronize()
+        *stages, full = fns
+        for s in stages:
+            for k, t in fast[s].items():
+                assert t.dtype == plain[s][k].dtype and torch.equal(
+                    t, plain[s][k]), (label, s, k, "kernels != plain")
+        f, p = fast[full], plain[full]
+        assert torch.equal(f["pick_id"], p["pick_id"]), (label, "pick")
+        res = verify.edge_aware_compare(f["sdr"].cpu().numpy(),
+                                        p["sdr"].cpu().numpy(),
+                                        pick=p["pick_id"].cpu().numpy())
+        assert res["status"] == "pass", (label, res)
+        ref = eng.run_frame(0.0)
+        torch.cuda.synchronize()
+        for k, t in f.items():
+            assert torch.equal(t, getattr(ref, k)), (label, k,
+                                                     "!= run_frame")
+        print(f"14a {label}: {len(fns)} prefixes through the kernels equal "
+              f"the plain versions; full frame: pick ids equal, edge-aware "
+              f"{res['status']}, bit-equal to run_frame's compiled frame",
+              flush=True)
+
+    def ledger(label, module, eng):
+        bench.settle(eng)
+        prefixes_equal(label, module.stage_fns(eng), eng)
+        reset_counts()
+        rows = module.stage_ledger(eng, rounds=rounds, frames=10)
+        run = add_counts()
+        print(f"14a {label} stage ledger (card {smi}), {rounds} rounds of "
+              f"10 replays, ms a frame; launches {run}:", flush=True)
+        for r in rows:
+            print(f"    {r['stage']:12s} {r['median_ms']:8.4f} "
+                  f"{r['delta_ms']:+8.4f}", flush=True)
+        out.setdefault("ledgers", {})[label] = [
+            {k: r[k] for k in ("stage", "median_ms", "delta_ms", "min_ms")}
+            for r in rows]
+        return rows
+
+    def ranked(label, eng, what, want):
+        reset_counts()
+        path = trace_top.capture(eng, os.path.join(OUT_DIR, "trace_top",
+                                                   label), what)
+        run = add_counts()
+        rows = trace_top.parse(path)
+        total = sum(r["us"] for r in rows)
+        where = {k: next((i for i, r in enumerate(rows) if k in r["name"]),
+                         None) for k in want}
+        missing = [k for k, i in where.items() if i is None]
+        assert not missing, (label, "kernels not in the trace", missing)
+        kernel_us = {k: sum(r["us"] for r in rows if k in r["name"]) / 2
+                     for k in want}
+        print(f"14b trace_top {label} ({what}, 2 replays; card {smi}): "
+              f"{total / 2e3:.4f} device ms a replay over {len(rows)} "
+              f"entries; ranks {where}, us a replay {kernel_us}; launches "
+              f"{run}; top 15:", flush=True)
+        for r in rows[:15]:
+            print(f"    {r['us'] / 2:9.1f} us {r['count'] // 2:5d}x  "
+                  f"{r['name'][:160]}", flush=True)
+        out.setdefault("trace_top", {})[label] = {
+            "device_ms_per_replay": total / 2e3, "ranks": where,
+            "kernel_us_per_replay": kernel_us,
+            "top15": [{"us_per_replay": r["us"] / 2,
+                       "count_per_replay": r["count"] / 2,
+                       "name": r["name"][:160]} for r in rows[:15]]}
+        return rows
+
+    # (a) the stage ledgers, the headline's frame beside its full prefix
+    head = bench.build_engine(device=dev)
+    rows = ledger("headline", bench_stages, head)
+    fns = bench_stages.stage_fns(head)
+    cam = timing.camera(head)
+    scene, pool, lights, params, env, atlas = timing.frame_args(head)
+    bodies = {
+        "full row, every output summed": timing.capture(
+            lambda c: timing.reduce(fns["full"](c)), cam),
+        "frame, one pixel": profile_frame.frame_body(
+            cam, scene, pool, lights, params, env, atlas, head.cfg)}
+    side = timing.summary(timing.round_robin(bodies, rounds, 10, dev))
+    print("14a headline full row vs frame body: " + json.dumps(
+        {r["name"]: r["median_ms"] for r in side}), flush=True)
+    out["headline_full_vs_frame_body"] = {r["name"]: r["median_ms"]
+                                          for r in side}
+    del bodies
+    multi = bench.build_engine(multilight=True, device=dev)
+    ledger("config 2", bench_stages, multi)
+    hp = bench.build_engine(highpoly=True, device=dev)
+    ledger("highpoly", profile_highpoly, hp)
+
+    # (b) the op rankings
+    ranked("headline", head, "frame", ("raster_kernel", "select_eval_kernel",
+                                       "shade_kernel"))
+    ranked("highpoly", hp, "frame", ("raster_stream_kernel",
+                                     "select_eval_stream_kernel"))
+    top = ranked("config 2 atlas", multi, "atlas", ("raster_kernel",))
+    # where the atlas's three costliest entries are launched from
+    names = [r["name"] for r in top[:3]]
+    src = dump_graph.op_sources(dump_graph.trace_eager_frame(multi, "atlas"),
+                                names)
+    out["config 2 atlas sources"] = {n[:100]: [s_[1] for s_ in v]
+                                     for n, v in src.items()}
+    for n, v in src.items():
+        print(f"14b config 2 atlas, {n[:90]}: launched from "
+              + json.dumps([s_[1][:3] for s_ in v]), flush=True)
+    del hp, multi
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a config A/B and the gatemin group
+    reset_counts()
+    ab = ab_frame.ab_cfg(lambda ov: bench.build_engine(
+        device=dev, cfg_overrides=ov), {"sky_block_capacity": 2048},
+        rounds=rounds, frames=8)
+    gm = profile_frame.profile_group(head, "gatemin", rounds=rounds, frames=8)
+    run = add_counts()
+    assert [r["name"] for r in ab] == ["base", "sky_block_capacity=2048"]
+    assert [r["variant"] for r in gm] == ["min-map", "pcf-win"]
+    out["ab_frame"] = {r["name"]: r["median_ms"] for r in ab}
+    out["gatemin"] = {r["variant"]: r["median_ms"] for r in gm}
+    out["gatemin_peak_mib"] = gm[0]["peak_mib"]
+    print(f"14c ab_frame --cfg sky_block_capacity=2048 (card {smi}): "
+          f"{json.dumps(out['ab_frame'])}; gatemin {json.dumps(out['gatemin'])}"
+          f", peak {gm[0]['peak_mib']:.0f} MiB; launches {run}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the op studies at the reference tools' sizes
+    reset_counts()
+    out["binning"] = bench_binning.bench_binning(dev, rounds=rounds)
+    out["sky_ops"] = bench_sky_blocks.sky_ops(dev, rounds=rounds)
+    out["sky_pipeline"] = bench_sky_blocks.sky_pipeline(dev, rounds=rounds)
+    out["gather_pcf"] = bench_gather_pcf.bench_gather(dev, rounds=rounds)
+    run = add_counts()
+    print(f"14d op studies (card {smi}); launches {run}:", flush=True)
+    for r in out["binning"]:
+        print(f"    binning {r['case']}: dense {r['dense_ms']:.4f} ms, "
+              f"scatter {r['scatter_ms']:.4f} ms, ids equal in "
+              f"{r['tiles_compared']} tiles ({r['tiles_at_capacity']} at "
+              f"capacity), big list {r['big_capacity']}", flush=True)
+    for r in out["sky_ops"]:
+        print(f"    sky {r['form']}: {r['median_ms']:.4f} ms", flush=True)
+    print(f"    sky forms agree, RGBE within {out['sky_ops'][0]['rgbe_step']:.5f}"
+          f": {json.dumps(out['sky_ops'][0]['max_rgbe_minus_f32'])}",
+          flush=True)
+    for r in out["sky_pipeline"]:
+        print(f"    sky pipeline {r['config']}: {r['median_ms']:.4f} ms",
+              flush=True)
+    for r in out["gather_pcf"]:
+        print(f"    gather {r['form']}: {r['median_ms']:.4f} ms "
+              f"({r['rows']} rows; f32x4 and u8x16 bit-equal)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the headline's graph
+    reset_counts()
+    dot = dump_graph.dump(head, os.path.join(OUT_DIR, "frame_graph.dot"))
+    run = add_counts()
+    with open(dot) as f:
+        nodes = dump_graph.kernel_nodes(f.read())
+    want = ("raster_kernel", "select_eval_kernel", "shade_kernel",
+            "windowed_blend")
+    hits = {k: sum(n for name, n in nodes.items() if k in name) for k in want}
+    assert all(hits.values()), ("kernel nodes missing from the graph", hits)
+    out["graph"] = {"kernel_nodes": sum(nodes.values()),
+                    "kernels": len(nodes), "port_kernel_nodes": hits}
+    print(f"14e dump_graph: {os.path.relpath(dot, ROOT)}, "
+          f"{sum(nodes.values())} kernel nodes of {len(nodes)} kernels; the "
+          f"port's: {hits}; launches {run}", flush=True)
+    del head
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(OUT_DIR, "chip_smoke_tools.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"14 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     import numpy as np
     import torch
@@ -2460,6 +2693,10 @@ def main(argv: list[str]) -> int:
     # ---- phase 13: the port's benchmark -----------------------------------
     bench_phase(dev, smi, settle, timed_frames, kernel_vs_plain, reset_counts,
                 add_counts)
+
+    # ---- phase 14: the measurement tools ----------------------------------
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tools_phase(dev, smi, reset_counts, add_counts)
 
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),

@@ -28,6 +28,12 @@ HOST_MODULES = ["tinyrenderer_tpu_torch." + m for m in (
     "viewer.__main__", "__main__", "parallel.sharded", "parallel.launch",
     "parallel.__main__", "tools.orbit", "utils.async_fetch", "entry",
     "tools.gen_default_ibl", "tools.fidelity_report", "bench")]
+# the measurement tools (they import neither jax, the JAX package nor the
+# repository's root tools/)
+TOOL_MODULES = ["tinyrenderer_tpu_torch.tools." + m for m in (
+    "timing", "bench_stages", "profile_highpoly", "trace_top",
+    "profile_frame", "ab_frame", "bench_binning", "bench_sky_blocks",
+    "bench_gather_pcf", "dump_graph")]
 
 
 def _forbidden(name: str) -> bool:
@@ -53,7 +59,8 @@ def test_port_never_imports_jax():
             "tinyrenderer_tpu_torch.entry",
             "tinyrenderer_tpu_torch.tools.gen_default_ibl",
             "tinyrenderer_tpu_torch.tools.fidelity_report",
-            "tinyrenderer_tpu_torch.bench"} <= set(PORT_MODULES)
+            "tinyrenderer_tpu_torch.bench"} | set(TOOL_MODULES) <= set(
+                PORT_MODULES)
     assert "tinyrenderer_tpu_torch.shared" not in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}:\n"
@@ -64,6 +71,36 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
+
+
+def test_tools_never_import_the_reference_tools():
+    """The measurement tools import, in a fresh interpreter run from the
+    repository's root, without jax, the JAX package, the root ``tools/``
+    or the root ``bench.py`` entering sys.modules; no import statement of
+    theirs names any of them (read from their syntax trees)."""
+    assert set(TOOL_MODULES) <= set(PORT_MODULES)
+    code = ("import importlib, sys\n"
+            f"for m in {TOOL_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'tinyrenderer_tpu', 'tools', 'bench'))\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    for m in TOOL_MODULES:
+        path = os.path.join(ROOT, *m.split(".")) + ".py"
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "jaxlib",
+                                               "tinyrenderer_tpu", "tools",
+                                               "bench"), (m, n)
 
 
 def test_host_surfaces_need_no_pil():

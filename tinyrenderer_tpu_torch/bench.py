@@ -94,6 +94,7 @@ from .render import compiled
 from .render import frame as framelib
 from .render.engine import Engine
 from .scene import demo
+from .tools.timing import Clock
 
 WARMUP = 2          # untimed loops of ITERS frames before the timed ones
 ITERS = 32          # frames a timed loop
@@ -239,29 +240,6 @@ def build_engine(stress: bool = False, forward: bool = False,
     return _world_engine(demo.build_demo_world(n_cubes=50), cfg, device)
 
 
-class _Clock:
-    """Marks on the device's stream (CUDA events) or, for a CPU engine, on
-    the host clock."""
-
-    def __init__(self, device):
-        self.cuda = torch.device(device).type == "cuda"
-
-    def mark(self):
-        if not self.cuda:
-            return time.perf_counter()
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def sync(self) -> None:
-        if self.cuda:
-            torch.cuda.synchronize()
-
-    def ms(self, a, b) -> float:
-        """ms from mark ``a`` to mark ``b`` (both done: after ``sync``)."""
-        return a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-
-
 def settle(eng: Engine, max_frames: int = 10) -> None:
     """A frame (``render()`` renders again while a capacity grew), every
     queued monitor read, then frames until one held its config."""
@@ -297,7 +275,7 @@ def _moved(before: RenderConfig, after: RenderConfig) -> dict:
             if getattr(before, f.name) != getattr(after, f.name)}
 
 
-def _time_settled(eng: Engine, clock: _Clock, trace_dir: str, reps: int,
+def _time_settled(eng: Engine, clock: Clock, trace_dir: str, reps: int,
                   iters: int, scale_check: bool):
     """One measurement of a settled engine: (Timing, the fields that moved
     in a window, or {} if none did; a new capture shows as ``capture``)."""
@@ -314,12 +292,7 @@ def _time_settled(eng: Engine, clock: _Clock, trace_dir: str, reps: int,
         scene, lights = eng._pack.scene, eng._pack.lights
         ca(scene, lights)
         clock.sync()
-        a = clock.mark()
-        for _ in range(ATLAS_REPLAYS):
-            ca(scene, lights)
-        b = clock.mark()
-        clock.sync()
-        atlas_ms = clock.ms(a, b) / ATLAS_REPLAYS
+        atlas_ms = clock.loop_ms(lambda: ca(scene, lights), ATLAS_REPLAYS)
 
     def state():
         return (framelib.compiled_frame.cache_info().misses,
@@ -385,7 +358,7 @@ def time_engine(eng: Engine, trace_dir: str = "", reps: int = REPS,
                 iters: int = ITERS, scale_check: bool = False) -> Timing:
     """Settle ``eng`` and time its steady frames (see the module notes).
     A measurement whose config moved is settled and taken once more."""
-    clock = _Clock(eng.device)
+    clock = Clock(eng.device)
     settle(eng)
     timing, moved = _time_settled(eng, clock, trace_dir, reps, iters,
                                   scale_check)
@@ -519,21 +492,14 @@ def measure_raster_throughput(device="cuda") -> dict:
     t = time_engine(eng, reps=2, iters=8)
     p50_frame = sorted(t.frame_ms)[len(t.frame_ms) // 2]
     tris = int(eng._pack.counts["triangles"])
-    clock = _Clock(eng.device)
+    clock = Clock(eng.device)
     stage = compiled.CompiledFn(raster_stage(eng.cfg))
     scene = eng._pack.scene
     cam = torch.as_tensor(eng.camera.to_raw(), device=eng.device)
     stage(scene, cam)               # the warm-up and the capture
     clock.sync()
-    best = None
-    for _ in range(3):
-        a = clock.mark()
-        for _ in range(RASTER_REPLAYS):
-            stage(scene, cam)
-        b = clock.mark()
-        clock.sync()
-        dt = clock.ms(a, b) / RASTER_REPLAYS
-        best = dt if best is None else min(best, dt)
+    best = min(clock.loop_ms(lambda: stage(scene, cam), RASTER_REPLAYS)
+               for _ in range(3))
     return {
         "triangles": tris,
         "raster_stage_ms": round(best, 3),
@@ -554,7 +520,7 @@ def measure_editor_roundtrip(eng: Engine) -> dict:
 
     cfg = eng.cfg
     app = EditorApp(eng)
-    clock = _Clock(eng.device)
+    clock = Clock(eng.device)
     app.run_frame(0.0)
     clock.sync()
 

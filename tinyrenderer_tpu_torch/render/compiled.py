@@ -50,7 +50,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import weakref
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -88,6 +88,15 @@ class _CudaGraph:
     def __init__(self, device: torch.device):
         self.device = device
         self.graph = torch.cuda.CUDAGraph()
+        self.dump_path = None
+
+    def debug_dump_to(self, path: str) -> None:
+        """Keep the captured graph's nodes (a graph that keeps them and is
+        in debug mode before the capture) and write them to ``path`` as a
+        DOT file once it is instantiated."""
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.graph.enable_debug_mode()
+        self.dump_path = path
 
     def warm_up(self, run: Callable[[], Any]) -> None:
         # on a side stream, as PyTorch's capture recipe warms up
@@ -100,7 +109,11 @@ class _CudaGraph:
 
     def capture(self, run: Callable[[], Any]) -> Any:
         with torch.cuda.graph(self.graph):
-            return run()
+            out = run()
+        if self.dump_path:
+            self.graph.instantiate()
+            self.graph.debug_dump(self.dump_path)
+        return out
 
     def replay(self) -> None:
         self.graph.replay()
@@ -199,10 +212,13 @@ class _Entry:
 
 class CompiledFn:
     """``fn`` compiled as the module notes say: called as ``fn`` is, it
-    returns what ``fn`` returns on the same arguments."""
+    returns what ``fn`` returns on the same arguments. ``debug_dump``: a
+    path each capture writes its graph to as a DOT file
+    (``CUDAGraph.debug_dump``; ``tools/dump_graph.py`` passes it)."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, debug_dump: Optional[str] = None):
         self.fn = fn
+        self.debug_dump = debug_dump
         self._entries: dict = {}
 
     def __call__(self, *args, **kwargs):
@@ -217,11 +233,18 @@ class CompiledFn:
             graph = capture_backend(dev)
             if graph is None:
                 return self.fn(*args, **kwargs)
+            if self.debug_dump:
+                graph.debug_dump_to(self.debug_dump)
             entry = self._entries[key] = _Entry(self.fn, rebuild, leaves,
                                                 graph)
         else:
             entry.load(leaves)
         return entry.replay()
+
+    @property
+    def captured(self) -> bool:
+        """Whether a graph was captured (never on the CPU)."""
+        return bool(self._entries)
 
     @property
     def capture_ms(self) -> list:

@@ -32,7 +32,6 @@ import argparse
 import os
 import statistics
 import sys
-import time
 from dataclasses import replace
 from typing import Optional
 
@@ -42,6 +41,7 @@ import torch
 from ..config import RenderConfig
 from ..render.engine import Engine
 from ..scene import demo
+from .timing import Clock
 
 BASELINE = "reference_parity"
 
@@ -107,34 +107,18 @@ def table(rows: list) -> list:
     return lines
 
 
-def _loop_ms(eng: Engine, frames: int) -> float:
-    """ms a frame of ``frames`` back-to-back ``run_frame`` calls, one
-    synchronize at the end: CUDA events on the card, the host clock on the
-    CPU."""
-    if eng.device.type == "cuda":
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(frames):
-            eng.run_frame(0.0)
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / frames
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        eng.run_frame(0.0)
-    return (time.perf_counter() - t0) * 1e3 / frames
-
-
 def time_engines(engines: dict, rounds: int, frames: int) -> dict:
     """Median ms a frame of each engine over ``rounds`` round-robin loops
     (after one untimed loop each)."""
+    def loop_ms(eng):
+        return Clock(eng.device).loop_ms(lambda: eng.run_frame(0.0), frames)
+
     for eng in engines.values():
-        _loop_ms(eng, frames)
+        loop_ms(eng)
     raw = {k: [] for k in engines}
     for r in range(rounds):
         for name, eng in engines.items():
-            raw[name].append(_loop_ms(eng, frames))
+            raw[name].append(loop_ms(eng))
         print(f"# round {r}: " + "  ".join(
             f"{k}={v[-1]:.2f}" for k, v in raw.items()), file=sys.stderr)
     return {k: statistics.median(v) for k, v in raw.items()}
