@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Builds the seven hand-written kernels (K1-K7) from
+Builds the seven hand-written kernels (K1-K7) and the glue's fused
+multiply-adds (``ops/fp.py``'s five entry points, ``csrc/fp.cu``) from
 ``tinyrenderer_tpu_torch/csrc`` (one ``nvcc`` a source, in parallel) and
 runs, each phase asserting or letting its exception propagate:
 
@@ -118,7 +119,15 @@ runs, each phase asserting or letting its exception propagate:
    config 2's shadow atlas, which name the kernels of each; (c) a config
    A/B and the ``gatemin`` group; (d) the three op studies with their
    equality checks; (e) the headline's CUDA graph as a DOT file holding
-   the frame's kernels.
+   the frame's kernels;
+15. the glue's fused multiply-adds (:func:`fp_phase`): (a) every fp launch
+   of an eager headline, high-poly and SSR frame against its float64 form,
+   each differing element proven correctly rounded on the host; (b)
+   ``fp.sqrt`` on all 2^31 non-negative float32 bit patterns; (c) the
+   kernels' times beside their bounds, the float64 forms and
+   ``torch.addcmul``; (d) ``fp.float64_forms()`` against the kernels on
+   PERF.md section 5's ten configurations; (e) no float64 kernel in the
+   headline's steady replay.
 
 Every engine frame is a settled one: ``Engine.render`` reads the monitors
 of a frame under a config it has not verified and renders it again
@@ -150,8 +159,11 @@ operations are counted from each kernel's formulas on this run's inputs:
 for the rasters 16 a (row, pixel centre) pair that the exhaustive test
 covers (``raster.covered_pairs``), which no cull can avoid; K3's are an
 estimate that stays well below its bytes term. No kernel's time may be
-under its bound (asserted). No single PyTorch call computes any of these
-functions, so ``library_ms`` is null throughout.
+under its bound (asserted). No single PyTorch call computes any of K1-K7,
+so their ``library_ms`` is null; of the fp entry points, ``fma``, ``lerp``
+and ``sqrt`` have one (``torch.addcmul``, ``torch.lerp``, ``torch.sqrt``,
+timed only: their rounding differs), and every fp line also carries one
+``addcmul`` at its shapes (``addcmul_ms``).
 
 With ``--profile``, every engine run timed above (and demo.lvl with its
 overlay and forward-only, settled and timed the same way) is followed by
@@ -173,7 +185,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -190,13 +204,20 @@ REPS = 20
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOPS = 67e12
 # the kernels of tinyrenderer_tpu_torch/csrc, by their __global__ names (K4
-# is its list-building kernel and its raster; K7 its word and byte kernels)
+# is its list-building kernel and its raster; K7 its word and byte kernels;
+# each ops/fp.py entry point its own kernel of csrc/fp.cu)
 GLOBALS = {"K1": ("raster_kernel",), "K2": ("select_eval_kernel",),
            "K3": ("shade_kernel",),
            "K4": ("raster_stream_kernel", "stream_parts_kernel"),
            "K5": ("select_eval_stream_kernel",),
            "K6": ("raster_resolve_kernel",),
-           "K7": ("windowed_blend_kernel", "windowed_blend_bytes_kernel")}
+           "K7": ("windowed_blend_kernel", "windowed_blend_bytes_kernel"),
+           "fp.fma": ("fp_fma_kernel",), "fp.lerp": ("fp_lerp_kernel",),
+           "fp.plane": ("fp_plane_kernel",), "fp.sqrt": ("fp_sqrt_kernel",),
+           "fp.fma_chain": ("fp_chain_kernel",)}
+FP_KERNELS = ("fp.fma", "fp.lerp", "fp.plane", "fp.sqrt", "fp.fma_chain")
+# a device kernel that computes in float64 (PyTorch's names carry the type)
+FLOAT64_KERNEL = re.compile(r"\bdouble\b")
 
 
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -301,7 +322,7 @@ def _device_profile(engine, steady_ms: float, n: int = 5) -> dict:
     counted = {k: c1[k] - c0[k] for k in c0 if c1[k] != c0[k]}
     device_us, launches = 0.0, 0
     kernel_us, traced = dict.fromkeys(GLOBALS, 0.0), dict.fromkeys(GLOBALS, 0)
-    entries = []
+    entries, f64 = [], []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -309,6 +330,8 @@ def _device_profile(engine, steady_ms: float, n: int = 5) -> dict:
         device_us += us
         launches += e.count
         entries.append((us, e.count, e.key))
+        if FLOAT64_KERNEL.search(e.key):
+            f64.append((us, e.count, e.key))
         for k, names in GLOBALS.items():
             if any(re.search(rf"\b{name}(\b[<(]|$)", e.key) for name in names):
                 kernel_us[k] += us
@@ -325,7 +348,11 @@ def _device_profile(engine, steady_ms: float, n: int = 5) -> dict:
             "kernel_ms": {k: v / 1e3 / n for k, v in kernel_us.items() if v},
             "kernel_launches": {k: v / n for k, v in traced.items()},
             "top": [(us / 1e3 / n, c // n, key[:80])
-                    for us, c, key in sorted(entries, reverse=True)[:10]]}
+                    for us, c, key in sorted(entries, reverse=True)[:10]],
+            "float64_kernels": sum(c for _, c, _ in f64) / n,
+            "float64_ms": sum(us for us, _, _ in f64) / 1e3 / n,
+            "float64_top": [(us / 1e3 / n, c // n, key[:80])
+                            for us, c, key in sorted(f64, reverse=True)[:3]]}
 
 
 @contextlib.contextmanager
@@ -896,7 +923,9 @@ def sharded_phase(dev, smi: str, engines: dict, launches: dict,
         sums[k] += n
     for k, n in sums.items():
         launches[k] += n
-    assert all(sums[k] > 0 for k in launches), sums
+    # every kernel of K1-K7 on some case (the fp kernels are the glue)
+    assert all(sums[k] > 0 for k in launches if k not in FP_KERNELS), sums
+    assert sums["fp.fma_chain"] > 0 and sums["fp.fma"] > 0, sums
     print(f"9e nccl, one rank: demo.lvl 1920x1080 in one band equals the "
           f"single-card frame bit for bit (sdr, pick ids, depth, hdr, every "
           f"monitor); launches {e['launches']}", flush=True)
@@ -1068,8 +1097,14 @@ def entry_tools_phase(dev, smi: str, reset_counts, add_counts,
     64) into a temporary file, within one float16 step of the checked-in
     asset, and its ms; (c) the fidelity report on demo.lvl and on the
     textured world at 1920x1080 (``--only default,performance_preset,
-    fidelity_preset --time 3 --frames 8``), its rows printed. Each run's
-    launches are counted from 0 and added to the kernels line."""
+    fidelity_preset --time 3 --frames 8``), its rows printed; then the
+    whole grid of demo.lvl (20 rows, 16 configurations: more than
+    ``compiled_frame``'s cache of 8) at ``--time 3``: the timed rounds miss
+    that cache never (each configuration's body is its own, captured
+    before them) and its default row lies within 1.5x of the four-row
+    run's slowest round (a capture a loop would take it to several
+    times). Each run's launches are counted from 0 and added to the
+    kernels line."""
     import numpy as np
     import torch
     from tinyrenderer_tpu_torch import entry as entrylib
@@ -1139,6 +1174,7 @@ def entry_tools_phase(dev, smi: str, reset_counts, add_counts,
           f"checked-in asset, the rest equal", flush=True)
 
     # (c) the fidelity report at 1920x1080
+    default_rounds = {}
     for world in ("level", "textured"):
         reset_counts()
         rows = fidelity_report.main(
@@ -1152,52 +1188,62 @@ def entry_tools_phase(dev, smi: str, reset_counts, add_counts,
         for r in rows:
             assert r["sdr"].shape == (1080, 1920, 3) and r["ms_per_frame"] > 0
         assert rows[0]["psnr_db"] == float("inf")
+        default_rounds[world] = rows[1]["ms_rounds"]
         compact = [{k: ("exact" if v == float("inf") else v)
                     for k, v in r.items() if k != "sdr"} for r in rows]
         print(f"11c fidelity report, {world}, 1920x1080 (card {smi}): "
               + json.dumps(compact) + f"; launches {run}", flush=True)
+        del rows
+    # the whole grid (the repair of F1): the compiled-frame cache's misses
+    # read around the timed rounds
+    from tinyrenderer_tpu_torch.tools import timing
+    misses = {}
+
+    def round_robin(bodies, *a, **kw):
+        misses["before"] = framelib.compiled_frame.cache_info().misses
+        try:
+            return inner(bodies, *a, **kw)
+        finally:
+            misses["after"] = framelib.compiled_frame.cache_info().misses
+
+    inner = timing.round_robin
+    reset_counts()
+    with _patched(timing, "round_robin", round_robin):
+        t0 = time.perf_counter()
+        rows = fidelity_report.main(["--world", "level", "--level", LEVEL,
+                                     "--time", "3", "--frames", "8"])
+        grid_s = time.perf_counter() - t0
+    run = add_counts()
+    assert len(rows) == 20 and all(r["ms_per_frame"] > 0 for r in rows)
+    assert misses["after"] == misses["before"], misses
+    grid_default = rows[1]["ms_per_frame"]
+    four = default_rounds["level"]
+    assert rows[1]["config"] == "default" and grid_default < 1.5 * max(four), (
+        grid_default, four)
+    spread = "within" if min(four) <= grid_default <= max(four) else "not in"
+    print(f"11c the whole grid, demo.lvl, 1920x1080 (card {smi}): "
+          f"{len(rows)} rows in {grid_s:.1f} s, no compiled_frame miss in "
+          f"the timed rounds ({misses}); default {grid_default:.3f} ms a "
+          f"frame (rounds {[round(x, 3) for x in rows[1]['ms_rounds']]}), "
+          f"the four-row run's {[round(x, 3) for x in four]} "
+          f"({spread} its spread); ms a frame "
+          + json.dumps({r["config"]: round(r["ms_per_frame"], 3)
+                        for r in rows}) + f"; launches {run}", flush=True)
+    del rows
+    torch.cuda.empty_cache()
     print(f"11 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def compiled_phase(dev, smi: str, textured_cfg, reset_counts, add_counts,
-                   sync_free, profile: bool, profiles: list,
-                   frames: int = 30, timed: int = 10) -> dict:
-    """Phase 12: the compiled frame (``render/compiled.py``). (a) 21
-    configurations at their published sizes (the 19 that phases 2-7 time,
-    the HDR skybox engine of 7a and bench.py's 500-object stress world at
-    2560x1440): a fresh engine orbits on ``tools/orbit.py``'s path without
-    waiting for its monitors until an orbit grows nothing (the host at most
-    four frames ahead; its waits and the fetches a growth discarded are
-    printed), then once with every frame's monitors read before the next
-    pose, which must grow nothing; the compiled caches are
-    then dropped and the next frame captures the config's frame and atlas
-    (host ms and the graphs' memory printed); the orbit again, with a
-    ``set_param`` at frame ``frames // 2``, every frame bit-equal (every
-    FrameOutput field, monitors included) to the eager ``render_frame`` on
-    its arguments and no new capture; ``timed`` steady frames eagerly and
-    compiled (CUDA events: median, p90; peak memory; with ``--profile``
-    ``torch.profiler``'s device ms, launches and idle share both ways, and
-    each kernel's launches in the trace equal to its counter's). (b)
-    demo.lvl in ``EditorApp`` with an object selected (each frame repacks
-    and re-renders the atlas): compiled edit frames equal the eager ones,
-    timed both ways. (d) Every configuration's replays run under
-    ``set_sync_debug_mode("error")`` (``sync_free``). (e) The launch counts
-    of the compiled timed frames equal the eager ones. (c) is phase 8c's
-    library rebuild. Returns the numbers by configuration."""
-    import numpy as np
-    import torch
-    from tinyrenderer_tpu_torch.config import RenderConfig
-    from tinyrenderer_tpu_torch.editor import events as ev
-    from tinyrenderer_tpu_torch.editor.session import EditorApp
+def _config_runs(dev, c5, tmp: str) -> list:
+    """Phase 12's 21 configurations at their published sizes: (label,
+    engine factory, parameters). ``c5`` is the textured world's settled
+    config; ``tmp`` holds the HDR skybox file and the IBL cache."""
     from tinyrenderer_tpu_torch.assets import hdr as hdrlib
+    from tinyrenderer_tpu_torch.config import RenderConfig
     from tinyrenderer_tpu_torch.render import frame as framelib
-    from tinyrenderer_tpu_torch.render import reload as reloadlib
     from tinyrenderer_tpu_torch.render.engine import Engine
     from tinyrenderer_tpu_torch.scene import demo
-
-    t_phase = time.perf_counter()
-    R, c5 = dataclasses.replace, textured_cfg
-    MiB = 2.0 ** 20
+    R = dataclasses.replace
 
     def world(builder, cfg, size=(1920, 1080), **kw):
         return lambda: Engine.from_world(
@@ -1211,12 +1257,11 @@ def compiled_phase(dev, smi: str, textured_cfg, reset_counts, add_counts,
     def level(cfg):
         return lambda: Engine(cfg=cfg, device=dev, level_path=LEVEL)
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_12_")
     sky_path = os.path.join(tmp, "sky.hdr")
     with open(sky_path, "wb") as f:
         f.write(hdrlib.encode_hdr(hdrlib.procedural_sky()))
     ssr = {framelib.PARAM_SSR_STRENGTH: 0.5}
-    runs = [   # label, engine factory, parameters
+    return [   # label, engine factory, parameters
         ("demo world, directional light (fused)", world(
             lambda: demo.build_demo_world(n_cubes=24, with_point_light=False),
             RenderConfig()), {}),
@@ -1258,6 +1303,46 @@ def compiled_phase(dev, smi: str, textured_cfg, reset_counts, add_counts,
                 max_vertices=16384, max_triangles=8192, max_materials=1024,
                 bin_capacity=512, gate_block_h=8, gate_block_w=8),
             size=(2560, 1440)), {framelib.PARAM_SHADOW_BIAS: 2e-3})]
+
+
+def compiled_phase(dev, smi: str, textured_cfg, reset_counts, add_counts,
+                   sync_free, profile: bool, profiles: list,
+                   frames: int = 30, timed: int = 10) -> dict:
+    """Phase 12: the compiled frame (``render/compiled.py``). (a) 21
+    configurations at their published sizes (the 19 that phases 2-7 time,
+    the HDR skybox engine of 7a and bench.py's 500-object stress world at
+    2560x1440): a fresh engine orbits on ``tools/orbit.py``'s path without
+    waiting for its monitors until an orbit grows nothing (the host at most
+    four frames ahead; its waits and the fetches a growth discarded are
+    printed), then once with every frame's monitors read before the next
+    pose, which must grow nothing; the compiled caches are
+    then dropped and the next frame captures the config's frame and atlas
+    (host ms and the graphs' memory printed); the orbit again, with a
+    ``set_param`` at frame ``frames // 2``, every frame bit-equal (every
+    FrameOutput field, monitors included) to the eager ``render_frame`` on
+    its arguments and no new capture; ``timed`` steady frames eagerly and
+    compiled (CUDA events: median, p90; peak memory; with ``--profile``
+    ``torch.profiler``'s device ms, launches and idle share both ways, and
+    each kernel's launches in the trace equal to its counter's). (b)
+    demo.lvl in ``EditorApp`` with an object selected (each frame repacks
+    and re-renders the atlas): compiled edit frames equal the eager ones,
+    timed both ways. (d) Every configuration's replays run under
+    ``set_sync_debug_mode("error")`` (``sync_free``). (e) The launch counts
+    of the compiled timed frames equal the eager ones. (c) is phase 8c's
+    library rebuild. Returns the numbers by configuration."""
+    import numpy as np
+    import torch
+    from tinyrenderer_tpu_torch.config import RenderConfig
+    from tinyrenderer_tpu_torch.editor import events as ev
+    from tinyrenderer_tpu_torch.editor.session import EditorApp
+    from tinyrenderer_tpu_torch.render import frame as framelib
+    from tinyrenderer_tpu_torch.render import reload as reloadlib
+    from tinyrenderer_tpu_torch.render.engine import Engine
+
+    t_phase = time.perf_counter()
+    MiB = 2.0 ** 20
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_12_")
+    runs = _config_runs(dev, textured_cfg, tmp)
 
     def pose(eng, k):
         """``tools/orbit.py``'s camera: radius 16, elevation 8, looking at
@@ -1937,6 +2022,369 @@ def tools_phase(dev, smi: str, reset_counts, add_counts) -> dict:
         json.dump(out, f, indent=1)
     print(f"14 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+# PERF.md section 5's ten configurations (phase 12's labels)
+FP_CONFIGS = ("demo world, directional light (fused)",
+              "demo.lvl with the overlay", "textured world (fused)",
+              "high-poly world (stream)", "textured, fused_resolve",
+              "textured, SSR 0.5", "textured, texture scale 2",
+              "sky_scale=1, unfused", "reference_parity()",
+              "stress world, 500 objects")
+HEADLINE = FP_CONFIGS[0]
+# each fp entry point's counterpart in the JAX package: a multiply-add that
+# XLA contracts in a compiled elementwise loop (no pl.pallas_call)
+FP_REPLACES = {
+    "fp.fma": "tinyrenderer_tpu/ops/raster.py:116",
+    "fp.lerp": "tinyrenderer_tpu/ops/sampling.py:365",
+    "fp.plane": "tinyrenderer_tpu/ops/resolve.py:266",
+    "fp.sqrt": "tinyrenderer_tpu/ops/shading.py:162",
+    "fp.fma_chain": "tinyrenderer_tpu/ops/raster.py:86"}
+
+
+def fp_phase(dev, smi: str, textured_cfg, reset_counts, add_counts) -> dict:
+    """Phase 15: the glue's fused multiply-adds (``ops/fp.py``,
+    ``csrc/fp.cu``). (a) Every fp launch of one eager frame of the
+    headline (``transform_vertices``, ``triangle_setup`` of its 2048
+    triangles), of the high-poly world (``triangle_setup`` of 108108) and
+    of the textured world under SSR 0.5 (``_project_ray_points``, the
+    unfused G-buffer's dot products, at 1080p), recorded with its operands
+    (the first of each site, entry point and shape), launched again and
+    held against its float64 plain version: every element that differs is
+    proven, exactly in rationals on the host, to be the kernel's correctly
+    rounded chain (``fp.prove_mismatches``); the counts are printed. (b)
+    ``fp.sqrt`` against ``fp.sqrt_ref`` on all 2^31 non-negative float32
+    bit patterns (+0 to NaN), in chunks: bit-equal, NaN where NaN. (c)
+    Each site's launches (the three largest of a site; each entry point's
+    largest) timed as runs of launches (``_launch_run_ms``) beside the
+    float64 form (timed alike), ``torch.addcmul`` at the same shapes and,
+    where one PyTorch call computes the entry point's function
+    (``addcmul``, ``lerp``, ``sqrt``), that call; the bound (bytes over
+    3.35 TB/s) under each. Unlike K1-K7's runs, a run cycles through
+    copies of the inputs that together pass the L2 (a 2M-element launch's
+    inputs fit in it, and read from it the kernel beats the bound). (d)
+    ``fp.float64_forms()`` against the kernels
+    on PERF.md section 5's ten configurations, both in this process: each
+    engine settled, then per form the compiled frames dropped and captured
+    again (capture host ms, the capturing frame's peak MiB, the graphs'
+    MiB), ten steady frames (CUDA events), ``torch.profiler`` over five
+    (device ms, launches, idle, float64 kernels); the two forms' frames
+    have equal pick ids and pass the edge-aware comparison. (e) The
+    headline's steady replay holds no float64 kernel under the kernels,
+    and does under the float64 forms (the name test works). Engine frames
+    count their launches from 0 and add them to the kernels line; the
+    comparison launches of (a)-(c) do not. Writes ``chip_smoke_fp.json``
+    to ``OUT_DIR``; returns the kernels line's fp entries."""
+    import gc
+    import numpy as np
+    import torch
+    from tinyrenderer_tpu_torch import bench
+    from tinyrenderer_tpu_torch.ops import fp
+    from tinyrenderer_tpu_torch.render import frame as framelib
+    from tinyrenderer_tpu_torch.render import reload as reloadlib
+    from tinyrenderer_tpu_torch.utils import verify
+
+    t_phase = time.perf_counter()
+    MiB = 2.0 ** 20
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_15_")
+    runs = {label: (make, params) for label, make, params
+            in _config_runs(dev, textured_cfg, tmp)}
+    record_in = (HEADLINE, "high-poly world (stream)", "textured, SSR 0.5")
+    launch = fp._launch
+    recorded: dict = {}      # (site, entry point, shape) -> launch
+
+    def recording(kind, slots, **kw):
+        out = launch(kind, slots, **kw)
+        f = sys._getframe(1)
+        while f.f_code.co_filename == fp.__file__:
+            f = f.f_back
+        site = f"{f.f_back.f_code.co_name}>{f.f_code.co_name}"
+        recorded.setdefault((site, kind, tuple(out.shape)),
+                            (kind, dict(slots), kw))
+        return out
+
+    # ---- (d) + (e), recording (a)'s launches on the way -----------------
+    table, frames_fp = {}, {}
+    for label in FP_CONFIGS:
+        t_run = time.perf_counter()
+        make, params = runs[label]
+        eng = make()
+        eng.SHRINK_AFTER = 10 ** 6      # hold the config (see phase 12)
+        for i, v in params.items():
+            eng.set_param(i, v)
+        bench.settle(eng)
+        cfg = eng.cfg
+        if label in record_in:
+            with _patched(fp, "_launch", recording):
+                framelib.render_frame(*_frame_args(eng))
+            torch.cuda.synchronize()
+        row, outs = {}, {}
+        for form in ("float64", "kernels"):
+            with (fp.float64_forms() if form == "float64"
+                  else contextlib.nullcontext()):
+                reloadlib.invalidate_compiled_frames()
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                r0 = torch.cuda.memory_reserved()
+                a0 = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                eng._atlas = None
+                t0 = time.perf_counter()
+                outs[form] = eng.run_frame(0.0)     # captures frame + atlas
+                torch.cuda.synchronize()
+                capture_ms = (time.perf_counter() - t0) * 1e3
+                capture_peak = (torch.cuda.max_memory_allocated() - a0) / MiB
+                torch.cuda.empty_cache()
+                graphs_mib = (torch.cuda.memory_reserved() - r0) / MiB
+                eng.run_frame(0.0)
+                torch.cuda.synchronize()
+                reset_counts()
+                ms = []
+                for _ in range(10):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    eng.run_frame(0.0)
+                    b.record()
+                    b.synchronize()
+                    ms.append(a.elapsed_time(b))
+                run = add_counts()
+                prof = _device_profile(eng, statistics.median(ms))
+            assert eng.cfg == cfg, (label, form, "the config moved")
+            row[form] = {
+                "steady_ms": statistics.median(ms),
+                "p90_ms": float(np.percentile(ms, 90)),
+                "device_ms": prof["device_ms"], "idle": prof["idle"],
+                "launches": prof["launches"], "capture_ms": capture_ms,
+                "capture_peak_mib": capture_peak, "graphs_mib": graphs_mib,
+                "float64_kernels": prof["float64_kernels"],
+                "float64_ms": prof["float64_ms"],
+                "fp_launches": {k: run.get(k, 0) / 10 for k in FP_KERNELS},
+                "top": prof["top"][:4]}
+        a, b = outs["float64"], outs["kernels"]
+        assert torch.equal(a.pick_id, b.pick_id), (label, "pick ids differ")
+        res = verify.edge_aware_compare(b.sdr.cpu().numpy(),
+                                        a.sdr.cpu().numpy(),
+                                        pick=a.pick_id.cpu().numpy())
+        assert res["status"] == "pass", (label, res)
+        row["pixels_differing"] = int((a.sdr != b.sdr).any(-1).sum())
+        assert row["float64"]["float64_kernels"] > 0, (label, row["float64"])
+        if label == HEADLINE:      # (e)
+            assert row["kernels"]["float64_kernels"] == 0, row["kernels"]
+            assert row["float64"]["fp_launches"] == dict.fromkeys(
+                FP_KERNELS, 0.0), row["float64"]
+        table[label] = row
+        f64, k = row["float64"], row["kernels"]
+        print(f"15d {label} {cfg.width}x{cfg.height} (card {smi}): float64 "
+              f"forms -> kernels: steady {f64['steady_ms']:.3f} -> "
+              f"{k['steady_ms']:.3f} ms (p90 {f64['p90_ms']:.3f} -> "
+              f"{k['p90_ms']:.3f}), device {f64['device_ms']:.3f} -> "
+              f"{k['device_ms']:.3f} ms, idle {100 * f64['idle']:.1f} -> "
+              f"{100 * k['idle']:.1f}%, launches {f64['launches']:.0f} -> "
+              f"{k['launches']:.0f}, float64 kernels a frame "
+              f"{f64['float64_kernels']:.0f} ({f64['float64_ms']:.3f} ms) -> "
+              f"{k['float64_kernels']:.0f}, capture {f64['capture_ms']:.0f} "
+              f"-> {k['capture_ms']:.0f} ms, capturing frame peak "
+              f"{f64['capture_peak_mib']:.0f} -> {k['capture_peak_mib']:.0f} "
+              f"MiB, graphs {f64['graphs_mib']:.0f} -> {k['graphs_mib']:.0f} "
+              f"MiB; fp launches a frame {k['fp_launches']}; the two frames: "
+              f"pick ids equal, {row['pixels_differing']} pixels differ, "
+              f"edge-aware {res['status']}; top device entries (kernels) "
+              f"{[(round(t, 4), c, n[:48]) for t, c, n in k['top']]} "
+              f"({time.perf_counter() - t_run:.1f} s)", flush=True)
+        del eng, outs, a, b
+        reloadlib.invalidate_compiled_frames()
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- (a) each recorded launch against its float64 form --------------
+    def group(site, shape):
+        for tag in ("triangle_setup", "transform_vertices",
+                    "_project_ray_points"):
+            if tag in site:
+                return f"{tag} {shape[0]}" if tag == "triangle_setup" else tag
+        return site
+
+    checked: dict = {}
+    for (site, kind, shape), (k, slots, kw) in recorded.items():
+        out = launch(k, slots, **kw)
+        ref = fp.launch_ref(slots, **kw)
+        n = fp.prove_mismatches(out, ref, slots, **kw)
+        both = torch.isfinite(out) & torch.isfinite(ref)
+        err = float((out - ref).abs()[both].max()) if bool(both.any()) else 0.0
+        g = checked.setdefault(group(site, shape), {})
+        e = g.setdefault(kind, {"launches": 0, "elements": 0,
+                                "mismatches": 0, "max_abs_err": 0.0})
+        e["launches"] += 1
+        e["elements"] += out.numel()
+        e["mismatches"] += n
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+    groups = set(checked)
+    want = {"transform_vertices", "_project_ray_points"}
+    assert want <= groups, groups
+    setups = sorted(int(g.split()[1]) for g in groups
+                    if g.startswith("triangle_setup"))
+    assert setups and setups[0] <= 2048 and setups[-1] >= 100000, setups
+    dots = [g for g in groups if any(t in g for t in (
+        "_dot", "_normalize", "_norm3", "_safe_normalize"))]
+    assert dots, groups
+    mism = sum(e["mismatches"] for g in checked.values() for e in g.values())
+    elems = sum(e["elements"] for g in checked.values() for e in g.values())
+    print(f"15a fp kernels against the float64 forms (card {smi}): "
+          f"{len(recorded)} launches of {len(groups)} sites, {elems} "
+          f"elements, {mism} differ, each proven correctly rounded by the "
+          f"exact check; triangle_setup at {setups} rows; by site "
+          + json.dumps(checked), flush=True)
+    per_kind = {k: max((e["max_abs_err"] for g in checked.values()
+                        for kk, e in g.items() if kk == k), default=None)
+                for k in ("fma", "lerp", "plane", "sqrt", "chain")}
+    assert all(v is not None for v in per_kind.values()), per_kind
+
+    # ---- (b) fp.sqrt over every non-negative float32 ---------------------
+    t0 = time.perf_counter()
+    chunk, bad, payload = 1 << 27, 0, 0
+    base = torch.arange(chunk, dtype=torch.int32, device=dev)
+    for start in range(0, 1 << 31, chunk):
+        x = (base + start).view(torch.float32)
+        kx, rx = fp.sqrt(x), fp.sqrt_ref(x)
+        differ = kx.view(torch.int32) != rx.view(torch.int32)
+        nan2 = kx.isnan() & rx.isnan()
+        bad += int((differ & ~nan2).sum())
+        payload += int((differ & nan2).sum())
+        del x, kx, rx, differ, nan2
+    assert bad == payload == 0, (bad, payload)
+    print(f"15b fp.sqrt on all 2^31 non-negative float32 bit patterns (card "
+          f"{smi}): bit-equal to the float64 root, NaNs included "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del base
+    torch.cuda.empty_cache()
+
+    # ---- (c) times beside the bound, the float64 form and addcmul --------
+    def distinct(slots):
+        """The slots' device tensors, a view read in two slots once."""
+        seen = {}
+        for t in slots.values():
+            if t.is_cuda:
+                seen.setdefault((t.data_ptr(), t.shape, t.stride(), t.dtype),
+                                t)
+        return list(seen.values())
+
+    def work(slots, out, kw):
+        nbytes = _nbytes(*distinct(slots)) + out.numel() * 4
+        per = (4 if kw.get("lerp") else 2 * kw.get("n_pairs", 0)
+               + (7 in slots) + bool(kw.get("root")))
+        return nbytes, out.numel() * per
+
+    def library(kind, slots, kw):
+        """The one PyTorch call that computes the entry point's function
+        (None where there is none), and one addcmul at the same shapes."""
+        first, a0, b0 = (t.float() for t in (
+            slots.get(6, slots.get(7, slots.get(0))),
+            slots.get(0, slots.get(6)), slots.get(1, slots.get(6))))
+        addcmul = lambda: torch.addcmul(first, a0, b0)  # noqa: E731
+        if kind == "fma":
+            return addcmul, addcmul
+        if kind == "lerp" and kw.get("lerp") and all(
+                slots[i].is_cuda and slots[i].dtype == torch.float32
+                for i in range(3)):
+            return (lambda: torch.lerp(slots[0], slots[1], slots[2]),
+                    addcmul)
+        if kind == "sqrt":
+            return lambda: torch.sqrt(slots[6]), addcmul
+        return None, addcmul
+
+    picks = []
+    by_group: dict = {}
+    for key, rec in recorded.items():
+        by_group.setdefault(group(key[0], key[2]), []).append((key, rec))
+    for g, items in by_group.items():
+        if g in want or g.startswith("triangle_setup") or g in dots:
+            items.sort(key=lambda it: -math.prod(it[0][2]))
+            picks += items[:3]
+    for kind in ("fma", "lerp", "plane", "sqrt", "chain"):
+        items = [it for it in recorded.items() if it[0][1] == kind]
+        items.sort(key=lambda it: -math.prod(it[0][2]))
+        if items and items[0] not in picks:
+            picks.append(items[0])
+    def copies(slots, nbytes):
+        """Copies of the slots' storages (views rebuilt on each, strides
+        kept) enough that a run of launches cycling through them reads
+        128 MiB, past the 50 MB L2, as the bound assumes (at most 32, and
+        8 GiB of storages)."""
+        stores = {t.untyped_storage().data_ptr(): t for t in distinct(slots)}
+        size = sum(t.untyped_storage().nbytes() for t in stores.values())
+        k = max(1, min(32, -(-(128 << 20) // max(nbytes, 1)),
+                       (8 << 30) // max(size, 1)))
+        sets = [slots]
+        for _ in range(k - 1):
+            flat = {p: torch.empty(0, dtype=t.dtype, device=dev).set_(
+                t.untyped_storage()).clone() for p, t in stores.items()}
+            sets.append({s: (flat[t.untyped_storage().data_ptr()].as_strided(
+                t.shape, t.stride(), t.storage_offset()) if t.is_cuda else t)
+                for s, t in slots.items()})
+        return sets
+
+    def cycling(fn, sets):
+        it = itertools.cycle(sets)
+        return lambda: fn(next(it))
+
+    name_of = {k: f"fp.{'fma_chain' if k == 'chain' else k}"
+               for k in ("fma", "lerp", "plane", "sqrt", "chain")}
+    timed = []
+    for (site, kind, shape), (k, slots, kw) in picks:
+        out = launch(k, slots, **kw)
+        nbytes, ops = work(slots, out, kw)
+        sets = copies(slots, nbytes)
+        ms, n = _launch_run_ms(cycling(lambda sl: launch(k, sl, **kw), sets))
+        plain_ms, _ = _launch_run_ms(cycling(
+            lambda sl: fp.launch_ref(sl, **kw), sets))
+        libs = [library(kind, sl, kw) for sl in sets]
+        lib_ms = (_launch_run_ms(cycling(lambda f: f(), [f for f, _ in libs]))
+                  [0] if libs[0][0] is not None else None)
+        addcmul_ms = _launch_run_ms(cycling(lambda f: f(),
+                                            [a for _, a in libs]))[0]
+        bound_ms, bound_by = _bound(nbytes, ops)
+        ncopies = len(sets)
+        del sets, libs
+        assert ms >= bound_ms, (site, kind, shape, ms, bound_ms)
+        timed.append({"site": site, "group": group(site, shape),
+                      "entry": name_of[kind],
+                      "shape": list(shape), "ms": ms, "runs_of": n,
+                      "input_sets": ncopies,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "addcmul_ms": addcmul_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by})
+        print(f"15c {site} fp.{kind} {tuple(shape)}: kernel {ms:.4f} ms a "
+              f"launch (runs of {n} over {ncopies} input sets), float64 form "
+              f"{plain_ms:.4f}, addcmul "
+              f"{addcmul_ms:.4f}, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}) (card {smi})", flush=True)
+    del recorded, picks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    head = table[HEADLINE]["kernels"]["fp_launches"]
+    entries = {}
+    for name in FP_KERNELS:
+        rows = [t for t in timed if t["entry"] == name]
+        big = max(rows, key=lambda t: math.prod(t["shape"]))
+        kind = name[3:] if name != "fp.fma_chain" else "chain"
+        entries[name] = {**{k: big[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "addcmul_ms", "shape", "site")},
+            "max_abs_err": per_kind[kind],
+            "headline_launches_a_frame": head[name]}
+    out = {"card": smi, "configs": table, "checked": checked,
+           "sqrt_sweep": {"differ": bad, "nan_payloads_differ": payload},
+           "timed": timed, "entries": entries}
+    with open(os.path.join(OUT_DIR, "chip_smoke_fp.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print("15 fp entry points: " + json.dumps(entries), flush=True)
+    print(f"15 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return entries
 
 
 def main(argv: list[str]) -> int:
@@ -2698,6 +3146,9 @@ def main(argv: list[str]) -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     tools_phase(dev, smi, reset_counts, add_counts)
 
+    # ---- phase 15: the glue's fused multiply-adds --------------------------
+    glue = fp_phase(dev, smi, c5, reset_counts, add_counts)
+
     sources = {"K1": ("raster.cu", "tinyrenderer_tpu/ops/raster.py:557",
                       "K1 64x128 tiles"),
                "K2": ("select_eval.cu", "tinyrenderer_tpu/ops/resolve.py:408",
@@ -2727,6 +3178,19 @@ def main(argv: list[str]) -> int:
             (entry[f"{tag}_ms"], entry[f"{tag}_plain_ms"],
              entry[f"{tag}_bound_ms"]) = results[key2][1:4]
         table_out.append(entry)
+    for name, g in glue.items():
+        assert launches[name] > 0, f"{name} never launched on a main path"
+        table_out.append({
+            "name": name, "route": "cuda",
+            "source": "tinyrenderer_tpu_torch/csrc/fp.cu",
+            "replaces": f"{FP_REPLACES[name]} (XLA's fused multiply-add in "
+                        f"a compiled elementwise loop; no pl.pallas_call)",
+            "launches": launches[name], "max_abs_err": g["max_abs_err"],
+            "ms": g["ms"], "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+            "library_ms": g["library_ms"], "addcmul_ms": g["addcmul_ms"],
+            "shape": g["shape"],
+            "headline_launches_a_frame": g["headline_launches_a_frame"]})
     if profile:
         out_dir = os.path.join(ROOT, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)

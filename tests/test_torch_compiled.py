@@ -423,3 +423,40 @@ def test_translate_setup_y_without_uploads(monkeypatch):
     assert torch.equal(got.rows, rows)
     assert torch.equal(got.bbox[:, 1::2], setup.bbox[:, 1::2] - y)
     assert torch.equal(got.screen[:, :, 1], setup.screen[:, :, 1] - y)
+
+
+def test_fidelity_timing_captures_nothing_in_its_timed_rounds(engine, stub,
+                                                              monkeypatch):
+    """The fidelity report's ``--time`` over more configurations than
+    ``compiled_frame``'s cache holds (8): each engine's frame is captured
+    once as a body of its own before the timed rounds, and the rounds look
+    nothing up in the cache (its misses do not move) and capture nothing
+    (every body's graph count stays one). Timing through ``run_frame``
+    evicted each configuration before its turn came back and captured it
+    again in every round."""
+    from tinyrenderer_tpu_torch.tools import fidelity_report, timing
+    grid = fidelity_report.configurations(engine.cfg)
+    names = ("default", "default_f32_attrs", "default_texscale2",
+             "default_trilinear", "default_sky1", "default_sky4",
+             "default_shadow4", "default_f32_atlas", "default_skyblk",
+             "default_trilinear_sky4")
+    assert len({grid[n] for n in names}) == len(names) > 8
+    engines = {n: Engine.from_world(demo.build_demo_world(), cfg=grid[n],
+                                    device="cpu") for n in names}
+    seen = {}
+    inner = timing.round_robin
+
+    def round_robin(bodies, rounds, frames, device, log=True):
+        seen["bodies"] = bodies
+        seen["before"] = tframe.compiled_frame.cache_info().misses
+        out = inner(bodies, rounds, frames, device, log)
+        seen["after"] = tframe.compiled_frame.cache_info().misses
+        return out
+
+    monkeypatch.setattr(timing, "round_robin", round_robin)
+    ms = fidelity_report.time_engines(engines, rounds=2, frames=1)
+    assert set(ms) == set(names)
+    assert all(len(v) == 2 and min(v) > 0 for v in ms.values())
+    assert seen["after"] == seen["before"]
+    assert all(len(b.fn._entries) == 1 for b in seen["bodies"].values())
+    assert all(e._settled for e in engines.values())

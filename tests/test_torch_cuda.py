@@ -737,3 +737,165 @@ def test_compiled_frame_replays_equal_the_eager_frames(cuda):
     entry, = cf._entries.values()
     assert torch.equal(entry.args[3].cpu(),
                        torch.from_numpy(eng.camera.to_raw()))
+
+
+# ---- csrc/fp.cu: the glue's fused multiply-adds ---------------------------------
+# The bar: each kernel equals its float64 plain version element for element,
+# except where the host proves (in rationals, fp.exact_chain) that the
+# kernel's value is the chain with every step correctly rounded, which the
+# float64 form misses on about 2^-29 of inputs; fp.sqrt is bit-equal.
+
+def _fp_operands(dev, seed=0):
+    from tinyrenderer_tpu_torch.ops import fp  # noqa: F401
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dtype).to(dev)
+    m = r(257, 16)
+    return {
+        "contiguous": [r(1000003), r(1000003), r(1000003), r(1000003)],
+        "broadcast": [r(64, 1, 33), r(48, 33, dtype=torch.float16),
+                      r(64, 48, 1, dtype=torch.bfloat16),
+                      torch.tensor(0.375)],
+        "strided": [m[:, 4], m[:, 5], m[3, 7], m[:, 9:10].expand(257, 3)[:, 1]],
+        "misaligned": [r(4097)[1:], r(4096), r(1)[0], r(4096)[::1]],
+        "transposed": [r(33, 65).t(), r(65, 1), r(1, 33), r(65, 33)],
+    }
+
+
+def _fp_launches(fp):
+    return (fp.FMA_LAUNCHES, fp.LERP_LAUNCHES, fp.PLANE_LAUNCHES,
+            fp.SQRT_LAUNCHES, fp.CHAIN_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["contiguous", "broadcast", "strided",
+                                  "misaligned", "transposed"])
+def test_fp_kernels_match_the_float64_forms(cuda, case):
+    """fp.fma, lerp, plane (both orders), sqrt and fma_chain (1-3 pairs,
+    addend, tail, root) on the card: one launch each, counted once, the
+    output float32 and contiguous in the broadcast shape, equal to the
+    plain version but where the exact check proves the kernel right."""
+    from tinyrenderer_tpu_torch.ops import fp
+    a, b, c, d = _fp_operands(cuda)[case]
+    f = b.abs().float().clamp(max=1.0)
+    calls = [
+        ("fma", 0, lambda: fp.fma(a, b, c),
+         {0: a, 1: b, 6: c}, dict(n_pairs=1)),
+        ("lerp", 1, lambda: fp.lerp(a, c, f),
+         {0: a, 1: c, 2: f}, dict(lerp=True)),
+        ("plane", 2, lambda: fp.plane(a, b, c, d, f),
+         {0: b, 1: f, 2: a, 3: d, 7: c}, dict(n_pairs=2)),
+        ("plane mxu", 2, lambda: fp.plane(a, b, c, d, f, mxu_order=True),
+         {0: a, 1: d, 2: b, 3: f, 7: c}, dict(n_pairs=2)),
+        ("sqrt", 3, lambda: fp.sqrt(a), {6: a}, dict(root=True)),
+        ("chain 3", 4, lambda: fp.fma_chain([(a, b), (c, d), (b, c)], d=a),
+         {0: a, 1: b, 2: c, 3: d, 4: b, 5: c, 7: a}, dict(n_pairs=3)),
+        ("chain addend root", 4, lambda: fp.fma_chain(
+            [(a, a), (c, c)], c=d.abs(), root=True),
+         {0: a, 1: a, 2: c, 3: c, 6: d.abs()}, dict(n_pairs=2, root=True)),
+    ]
+    for name, k, call, slots, kw in calls:
+        n0 = _fp_launches(fp)
+        out = call()
+        n1 = _fp_launches(fp)
+        assert [y - x for x, y in zip(n0, n1)] == [int(i == k)
+                                                    for i in range(5)], name
+        ref = fp.launch_ref(slots, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and out.is_contiguous(), name
+        assert out.shape == ref.shape, (name, out.shape, ref.shape)
+        n = fp.prove_mismatches(out, ref, slots, **kw)
+        assert n <= max(8, out.numel() // 2 ** 20), (name, n)
+
+
+@pytest.mark.cuda
+def test_fp_sqrt_is_bit_equal_to_the_float64_root(cuda):
+    """fp.sqrt (IEEE sqrtf, no fast math) equals the float64 root rounded
+    to float32 bit for bit on 2^24 consecutive bit patterns from each of
+    six starts: subnormals, binades, the largest finite values, infinity
+    and the NaNs (a NaN's payload comes back quieted, as the float64 root
+    gives it)."""
+    from tinyrenderer_tpu_torch.ops import fp
+    for start in (0, 0x00800000, 0x3F000000, 0x7F000000, 0x7F800000 - 2**23,
+                  0x80000000 - 2**24):
+        bits = torch.arange(start, start + 2 ** 24, dtype=torch.int64,
+                            device=cuda).to(torch.int32)
+        x = bits.view(torch.float32)
+        k, r = fp.sqrt(x), fp.sqrt_ref(x)
+        assert torch.equal(k.view(torch.int32), r.view(torch.int32)), \
+            hex(start)
+    neg = -torch.rand(1000, device=cuda) - 1e-3
+    assert bool(fp.sqrt(neg).isnan().all())
+
+
+@pytest.mark.cuda
+def test_fp_narrow_types_follow_the_plain_rounding(cuda):
+    """A leading product of two bfloat16 operands and a lerp at a bfloat16
+    fraction round in bfloat16 as the plain versions do (PyTorch does that
+    step first); equal to the plain versions up to proven elements."""
+    from tinyrenderer_tpu_torch.ops import fp
+    g = torch.Generator().manual_seed(4)
+    a, b, c = (torch.randn(512, 3, generator=g).to(torch.bfloat16).to(cuda)
+               for _ in range(3))
+    out = fp.fma_chain([(a, b), (c, a)])
+    ref = fp.fma_chain_ref([(a, b), (c, a)])
+    torch.cuda.synchronize()
+    # the kernel's launch: the bfloat16 product a * b as its addend
+    assert fp.prove_mismatches(out, ref, {0: c, 1: a, 6: a * b},
+                               n_pairs=1) <= 2
+    f = torch.rand(512, 3, generator=g).to(torch.bfloat16).to(cuda)
+    out, ref = fp.lerp(a, b, f), fp.lerp_ref(a, b, f)
+    torch.cuda.synchronize()
+    # 1 - f and b * f rounded in bfloat16 first, as the plain version does
+    assert fp.prove_mismatches(out, ref, {0: a, 1: 1.0 - f, 6: b * f},
+                               n_pairs=1) <= 2
+
+
+@pytest.mark.cuda
+def test_fp_operands_the_kernel_does_not_take_raise(cuda):
+    """Float64 and integer CUDA operands, a CPU tensor with elements beside
+    CUDA ones and seven unmergeable dimensions raise; a 0-dim CPU tensor
+    goes by value."""
+    from tinyrenderer_tpu_torch.ops import fp
+    x = torch.randn(8, 4, device=cuda)
+    for bad in (x.double(), x.int(), torch.ones(8, 4)):
+        with pytest.raises((TypeError, ValueError)):
+            fp.fma(x, bad, x)
+    seven = torch.randn((2,) * 7, device=cuda)
+    with pytest.raises(ValueError):
+        fp.fma(seven.permute(6, 5, 4, 3, 2, 1, 0), seven, seven)
+    out = fp.fma(x, torch.tensor(2.0), torch.tensor(-1.0))
+    assert torch.equal(out, fp.fma_ref(x, torch.tensor(2.0),
+                                       torch.tensor(-1.0)))
+
+
+@pytest.mark.cuda
+def test_fp_kernels_capture_into_a_graph_without_syncs(cuda):
+    """A chain launched under ``set_sync_debug_mode("error")`` and captured
+    into a CUDA graph: the descriptor is a kernel parameter, so the launch
+    uploads nothing; replays on new inputs equal fresh launches, and a
+    0-dim CPU operand is frozen at its capture value as PyTorch's own
+    scalars are."""
+    from tinyrenderer_tpu_torch.ops import fp
+    a, b, c = (torch.randn(4096, 3, device=cuda) for _ in range(3))
+    vp = torch.randn(4, 4, device=cuda)
+    fp.fma_chain([(a, vp[0, 0]), (b, vp[0, 1]), (c, vp[0, 2])], d=vp[0, 3])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fp.fma_chain([(a, vp[0, 0]), (b, vp[0, 1]),
+                                (c, vp[0, 2])], d=vp[0, 3])
+            s = fp.sqrt(out.abs())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _ in range(3):
+        for t in (a, b, c, vp):
+            t.copy_(torch.randn_like(t))
+        g.replay()
+        want = fp.fma_chain([(a, vp[0, 0]), (b, vp[0, 1]), (c, vp[0, 2])],
+                            d=vp[0, 3])
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(s, fp.sqrt(want.abs()))

@@ -59,6 +59,7 @@ def test_port_never_imports_jax():
             "tinyrenderer_tpu_torch.entry",
             "tinyrenderer_tpu_torch.tools.gen_default_ibl",
             "tinyrenderer_tpu_torch.tools.fidelity_report",
+            "tinyrenderer_tpu_torch.ops.fp",
             "tinyrenderer_tpu_torch.bench"} | set(TOOL_MODULES) <= set(
                 PORT_MODULES)
     assert "tinyrenderer_tpu_torch.shared" not in PORT_MODULES
@@ -157,6 +158,27 @@ def test_chip_smoke_never_imports_jax():
             names.append(node.module or "")
     assert "tinyrenderer_tpu_torch.render.engine" in names
     assert not [n for n in names if _forbidden(n)], names
+
+
+def test_fp_kernels_module_imports_no_reference():
+    """``ops/fp.py`` (the glue kernels' wrappers and plain versions) and
+    the kernel library's ``kernels.py`` import, by their syntax trees, the
+    standard library, numpy, torch and the port's own modules: nothing of
+    jax or the JAX package."""
+    allowed = {"__future__", "contextlib", "ctypes", "fractions", "hashlib",
+               "math", "os", "pathlib", "shutil", "struct", "subprocess",
+               "time", "typing", "numpy", "torch", ".."}
+    for rel in ("ops/fp.py", "kernels.py"):
+        with open(os.path.join(ROOT, "tinyrenderer_tpu_torch", rel)) as f:
+            tree = ast.parse(f.read())
+        names = []
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names.append("." * node.level + (node.module or ""))
+        assert set(names) <= allowed, (rel, names)
+        assert not [n for n in names if _forbidden(n)], (rel, names)
 
 
 def test_cpu_tensors_take_plain_versions():

@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels.
 
 The CUDA sources under ``csrc/`` (K1 + K4 + K6 ``raster.cu``, K2 + K5
-``select_eval.cu``, K3 ``shade.cu``, K7 ``sampling.cu``) have a plain C
+``select_eval.cu``, K3 ``shade.cu``, K7 ``sampling.cu``, and the glue's
+fused multiply-adds of ``ops/fp.py`` in ``fp.cu``) have a plain C
 interface. Each is compiled by its own ``nvcc`` process, all started
 together, and the objects are linked into
 ``build/kernels/libtr_kernels_<hash>.so`` (the hash covers the sources and
@@ -29,7 +30,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("raster.cu", "select_eval.cu", "shade.cu", "sampling.cu")
+SOURCES = ("raster.cu", "select_eval.cu", "shade.cu", "sampling.cu", "fp.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # no --use_fast_math: sqrt and division stay IEEE round-to-nearest.
 # -fmad=false: no multiply-add is contracted behind the source's back; the
@@ -41,6 +42,28 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+FP_DIMS = 6    # csrc/fp.cu TR_FP_DIMS
+FP_SLOTS = 8   # csrc/fp.cu TR_FP_SLOTS: a0 b0 a1 b1 a2 b2 c d
+
+
+class FpOperand(ctypes.Structure):
+    """csrc/fp.cu ``FpOperand``: a pointer with element strides, or a
+    by-value float (``ptr`` null)."""
+    _fields_ = [("ptr", _P), ("stride", ctypes.c_longlong * FP_DIMS),
+                ("value", ctypes.c_float), ("dtype", _I)]
+
+
+class FpArgs(ctypes.Structure):
+    """csrc/fp.cu ``FpArgs``, passed by value to the ``tr_fp_*`` entry
+    points and on to the kernel as its parameter."""
+    _fields_ = [("op", FpOperand * FP_SLOTS),
+                ("shape", ctypes.c_longlong * FP_DIMS),
+                ("n", ctypes.c_longlong), ("ndim", _I), ("n_pairs", _I),
+                ("has_c", _I), ("has_d", _I), ("lerp", _I), ("root", _I),
+                ("used", _I), ("path", _I), ("vec", _I),
+                ("magic", ctypes.c_uint * FP_DIMS), ("shift", _I * FP_DIMS)]
+
 # C signature of every entry point: (argtypes); all return int but those
 # of RETURNS
 SIGNATURES = {
@@ -71,6 +94,15 @@ SIGNATURES = {
                  _I, _I, _P),
     # texels, idx, fx, fy, out, R, C, N, channel_first, stream
     "tr_windowed_blend": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # -> sizeof(FpArgs), checked against the ctypes mirror before a
+    # library's first fp launch (ops/fp.py)
+    "tr_fp_args_bytes": (),
+    # args (FpArgs by value), out, stream: one per ops/fp.py entry point
+    "tr_fp_fma": (FpArgs, _P, _P),
+    "tr_fp_lerp": (FpArgs, _P, _P),
+    "tr_fp_plane": (FpArgs, _P, _P),
+    "tr_fp_sqrt": (FpArgs, _P, _P),
+    "tr_fp_chain": (FpArgs, _P, _P),
 }
 
 RETURNS = {"tr_raster_scratch_bytes": ctypes.c_longlong,

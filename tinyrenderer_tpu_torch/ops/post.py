@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .fp import fma, lerp, sqrt
+from .fp import fma, fma_chain, lerp
 
 F32 = torch.float32
 I32 = torch.int32
@@ -196,8 +196,8 @@ def _project_ray_points(position, refl, ts, view_proj):
     p = fma(refl, ts[..., None], position)
     px, py, pz = p[..., 0], p[..., 1], p[..., 2]
     vp = view_proj
-    c = [fma(pz, vp[i, 2], fma(py, vp[i, 1], px * vp[i, 0])) + vp[i, 3]
-         for i in range(4)]
+    c = [fma_chain([(px, vp[i, 0]), (py, vp[i, 1]), (pz, vp[i, 2])],
+                   d=vp[i, 3]) for i in range(4)]
     w = c[3].clamp(min=1e-6)
     u = (c[0] / w) * 0.5 + 0.5
     v = 0.5 - (c[1] / w) * 0.5
@@ -242,11 +242,11 @@ def screen_space_reflections(hdr: torch.Tensor, depth: torch.Tensor,
     tap_hdr = hdr if tap_hdr is None else tap_hdr
     view = position - camera_pos
     vx, vy, vz = view[..., 0], view[..., 1], view[..., 2]
-    n = sqrt(fma(vz, vz, fma(vx, vx, vy * vy))).clamp(min=1e-9)
+    n = fma_chain([(vy, vy), (vx, vx), (vz, vz)], root=True).clamp(min=1e-9)
     view = view / n[..., None]
     vx, vy, vz = view[..., 0], view[..., 1], view[..., 2]
     nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
-    vdn = fma(vz, nz, fma(vx, nx, vy * ny))
+    vdn = fma_chain([(vy, ny), (vx, nx), (vz, nz)])
     refl = view - (2.0 * vdn)[..., None] * normal
 
     step_len = 0.25

@@ -31,7 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import kernels
-from .fp import fma, plane
+from .fp import fma, fma_chain, plane
 
 F32 = torch.float32
 I32 = torch.int32
@@ -91,9 +91,9 @@ class StreamBins:
 
 def affine3(a0, x, a1, y, a2, z, a3=None):
     """``a0 * x + a1 * y + a2 * z (+ a3)`` rounded as the reference's
-    compiled frame rounds it: ``fma(a2, z, fma(a0, x, a1 * y)) + a3``."""
-    r = fma(a2, z, fma(a0, x, a1 * y))
-    return r if a3 is None else r + a3
+    compiled frame rounds it: ``fma(a2, z, fma(a0, x, a1 * y)) + a3``, one
+    launch of the chain kernel on the card."""
+    return fma_chain([(a1, y), (a0, x), (a2, z)], d=a3)
 
 
 def transform_vertices(positions: torch.Tensor, vert_instance: torch.Tensor,
@@ -172,9 +172,9 @@ def triangle_setup(clip: torch.Tensor, tri_vidx: torch.Tensor,
     e1c = fma(x2, y0, -(x0 * y2)) * inv_area
     e2x, e2y = dy01 * inv_area, dx10 * inv_area
     e2c = fma(x0, y1, -(x1 * y0)) * inv_area
-    zx = fma(e2x, zs[2], fma(e1x, zs[1], (dy12z * inv_area) * zs[0]))
+    zx = fma_chain([(dy12z * inv_area, zs[0]), (e1x, zs[1]), (e2x, zs[2])])
     zy = affine3(dx21z * inv_area, zs[0], e1y, zs[1], e2y, zs[2])
-    zc = fma(e2c, zs[2], fma(e1c, zs[1], e0c * zs[0]))
+    zc = fma_chain([(e0c, zs[0]), (e1c, zs[1]), (e2c, zs[2])])
     idf = torch.arange(1, tri_vidx.shape[0] + 1, dtype=F32,
                        device=clip.device)
     rows = torch.stack([e0x, e0y, e0c, e1x, e1y, e1c, e2x, e2y, e2c,

@@ -24,7 +24,7 @@ import torch
 
 from .. import kernels
 from . import compact, post, raster, sampling
-from .fp import fma, lerp, plane, sqrt
+from .fp import fma_chain, lerp, plane
 
 F32 = torch.float32
 I32 = torch.int32
@@ -283,7 +283,7 @@ def _safe_normalize(v: torch.Tensor) -> torch.Tensor:
     """v / max(|v|, 1e-12) over the last (3-wide) axis; the squared length
     summed x, y, z with fused multiply-adds, as the reference's reduction."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    n = sqrt(fma(z, z, fma(y, y, x * x))).clamp(min=1e-12)
+    n = fma_chain([(x, x), (y, y), (z, z)], root=True).clamp(min=1e-12)
     return v / n[..., None]
 
 
@@ -518,8 +518,9 @@ def resolve_gbuffer_from_attrs(r: ResolvedAttrs, tri_id: torch.Tensor,
             pool, r.record, r.uv, level, use_tex & valid, tex_block_capacity,
             filter=texture_filter, duv=sampling.pool_duv(pool, r.uv))
     nt = rec[..., 4:7] * 2.0 - 1.0
-    n_mapped = _safe_normalize(fma(nt[..., 2:3], r.normal, fma(
-        nt[..., 0:1], r.tangent, nt[..., 1:2] * r.bitangent)))
+    n_mapped = _safe_normalize(fma_chain([(nt[..., 1:2], r.bitangent),
+                                          (nt[..., 0:1], r.tangent),
+                                          (nt[..., 2:3], r.normal)]))
     u = use_tex[..., None]
     return assemble(torch.where(u, n_mapped, r.normal),
                     torch.where(u, rec[..., 0:3], flat[..., 0:3]),

@@ -20,7 +20,7 @@ import torch
 
 from .. import kernels
 from .env import _SH_C, sh_eval_irradiance
-from .fp import fma, sqrt
+from .fp import fma, fma_chain, sqrt
 
 F32 = torch.float32
 
@@ -56,15 +56,17 @@ def pack_shading_consts(camera_pos: torch.Tensor, lights: ShadingLights,
 
 # ---- the unfused chain: (H, W, 3) maps, formulas of main.wgsl ----------
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _dot(a: torch.Tensor, b: torch.Tensor,
+         root: bool = False) -> torch.Tensor:
     """Sum over the last (3-wide) axis of a * b, keepdim, rounded as the
-    reference's reduction: ``fma(a2, b2, fma(a1, b1, a0 * b0))``."""
-    return fma(a[..., 2:3], b[..., 2:3],
-               fma(a[..., 1:2], b[..., 1:2], a[..., 0:1] * b[..., 0:1]))
+    reference's reduction: ``fma(a2, b2, fma(a1, b1, a0 * b0))``; with
+    ``root`` its square root."""
+    return fma_chain([(a[..., i:i + 1], b[..., i:i + 1]) for i in range(3)],
+                     root=root)
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / sqrt(_dot(v, v)).clamp(min=1e-12)
+    return v / _dot(v, v, root=True).clamp(min=1e-12)
 
 
 def fresnel_schlick(cos_theta, f0):
@@ -164,15 +166,15 @@ def shade_deferred(g, camera_pos: torch.Tensor, lights: "ShadingLights",
 
 # ---- the fused pass (K3) -------------------------------------------------
 
-def _dot3(ax, ay, az, bx, by, bz):
+def _dot3(ax, ay, az, bx, by, bz, root=False):
     # ax * bx + ay * by + az * bz as the reference's CPU build rounds it:
-    # fma(az, bz, fma(ax, bx, ay * by))
-    return fma(az, bz, fma(ax, bx, ay * by))
+    # fma(az, bz, fma(ax, bx, ay * by)); with root its square root
+    return fma_chain([(ay, by), (ax, bx), (az, bz)], root=root)
 
 
 def _norm3(x, y, z):
     # divide (not multiply by a reciprocal), as the reference
-    d = sqrt(_dot3(x, y, z, x, y, z)).clamp(min=1e-12)
+    d = _dot3(x, y, z, x, y, z, root=True).clamp(min=1e-12)
     return x / d, y / d, z / d
 
 

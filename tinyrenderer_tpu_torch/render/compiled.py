@@ -34,7 +34,7 @@ texture pools, ``EnvGPU``):
 - **Launch counters.** A kernel captured into a graph counts its launch
   when it is recorded, not when it runs. The counts a capture added are
   taken back and added again at every replay, so ``K1_LAUNCHES`` ...
-  ``K7_LAUNCHES`` count what the card ran.
+  ``K7_LAUNCHES`` and ``ops/fp.py``'s counters count what the card ran.
 
 Each graph keeps its transient memory in a private pool for as long as the
 entry lives (``frame.compiled_frame``'s cache of 8 configurations;
@@ -54,7 +54,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..ops import raster, resolve, sampling, shading
+from ..ops import fp, raster, resolve, sampling, shading
 
 # a tensor of at most this many bytes is copied into its slot at every call
 SMALL_BYTES = 4096
@@ -62,16 +62,21 @@ SMALL_BYTES = 4096
 _COUNTERS = (("K1", raster, "K1_LAUNCHES"), ("K2", resolve, "K2_LAUNCHES"),
              ("K3", shading, "K3_LAUNCHES"), ("K4", raster, "K4_LAUNCHES"),
              ("K5", resolve, "K5_LAUNCHES"), ("K6", raster, "K6_LAUNCHES"),
-             ("K7", sampling, "K7_LAUNCHES"))
+             ("K7", sampling, "K7_LAUNCHES"),
+             # the glue's fused multiply-adds (csrc/fp.cu), one an entry
+             ("fp.fma", fp, "FMA_LAUNCHES"), ("fp.lerp", fp, "LERP_LAUNCHES"),
+             ("fp.plane", fp, "PLANE_LAUNCHES"),
+             ("fp.sqrt", fp, "SQRT_LAUNCHES"),
+             ("fp.fma_chain", fp, "CHAIN_LAUNCHES"))
 
 
 def launch_counts() -> dict:
-    """The kernels' launch counters, K1 ... K7."""
+    """The kernels' launch counters: K1 ... K7, then the fp kernels."""
     return {k: getattr(mod, name) for k, mod, name in _COUNTERS}
 
 
 def add_launches(delta: dict) -> None:
-    """Add ``delta`` (K1 ... K7 -> n) to the launch counters."""
+    """Add ``delta`` (a counter's key -> n) to the launch counters."""
     for k, mod, name in _COUNTERS:
         setattr(mod, name, getattr(mod, name) + delta.get(k, 0))
 

@@ -59,7 +59,7 @@ import torch
 from .. import config
 from ..ops import compact, post, raster, resolve, sampling, shading, shadows
 from ..ops import env as envops
-from ..ops.fp import fma
+from ..ops.fp import fma, fma_chain
 from . import compiled
 from .scene_gpu import LightsGPU, SceneGPU
 
@@ -364,7 +364,8 @@ def render_frame_forward(scene: SceneGPU, pool: sampling.TexturePoolGPU,
     nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
     for i in range(cfg.num_directional_lights):
         d = lights.dir_direction[i]
-        ndotl = (-fma(nz, d[2], fma(ny, d[1], nx * d[0]))).clamp(min=0.0)
+        ndotl = (-fma_chain([(nx, d[0]), (ny, d[1]), (nz, d[2])])
+                 ).clamp(min=0.0)
         shade = fma(ndotl[..., None], lights.dir_color[i], shade)
     hdr = albedo * shade * valid[..., None].to(F32)
     if env is not None:

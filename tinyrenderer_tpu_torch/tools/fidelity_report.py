@@ -16,10 +16,12 @@ configuration beside it. Each engine's first frame is a settled one
 
 ``--world textured`` renders ``build_demo_world(n_cubes=24,
 textured_every=2)``: ``levels/demo.lvl`` is flat, so there the texture
-levers read "exact". ``--time`` runs, for ``ROUNDS`` rounds, a loop of
-``N`` ``run_frame`` calls of each configuration in turn (round-robin), with
-one synchronize at the end of each loop and CUDA events around it (the
-host clock on the CPU), and reports each configuration's median.
+levers read "exact". ``--time`` settles each configuration's engine and
+captures its steady frame as a body of its own (``tools/timing.py``), kept
+for the whole run, then runs, for ``ROUNDS`` rounds, a loop of ``N`` calls
+of each body in turn (round-robin), with one synchronize at the end of
+each loop and CUDA events around it (the host clock on the CPU), and
+reports each configuration's median.
 
 It runs on the CUDA device unless ``--device cpu``; without one the
 default exits non-zero and renders nothing. ``main(argv)`` returns the
@@ -38,10 +40,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import bench
 from ..config import RenderConfig
 from ..render.engine import Engine
 from ..scene import demo
-from .timing import Clock
+from . import timing
+from .profile_frame import frame_body
 
 BASELINE = "reference_parity"
 
@@ -107,21 +111,28 @@ def table(rows: list) -> list:
     return lines
 
 
-def time_engines(engines: dict, rounds: int, frames: int) -> dict:
-    """Median ms a frame of each engine over ``rounds`` round-robin loops
-    (after one untimed loop each)."""
-    def loop_ms(eng):
-        return Clock(eng.device).loop_ms(lambda: eng.run_frame(0.0), frames)
+def frame_bodies(engines: dict) -> dict:
+    """Each engine settled and its steady frame captured as a body of its
+    own, kept for the whole run, as the reference's tool keeps a jitted
+    frame loop an engine. Not ``Engine.run_frame``: it looks its graph up
+    in ``frame.compiled_frame``'s cache of 8 configurations, and a grid of
+    more evicted each one before its turn came back, so every timed loop
+    captured its frame again."""
+    bodies = {}
+    for name, eng in engines.items():
+        bench.settle(eng)
+        scene, pool, lights, params, env, atlas = timing.frame_args(eng)
+        bodies[name] = frame_body(timing.camera(eng), scene, pool, lights,
+                                  params, env, atlas, eng.cfg)
+    return bodies
 
-    for eng in engines.values():
-        loop_ms(eng)
-    raw = {k: [] for k in engines}
-    for r in range(rounds):
-        for name, eng in engines.items():
-            raw[name].append(loop_ms(eng))
-        print(f"# round {r}: " + "  ".join(
-            f"{k}={v[-1]:.2f}" for k, v in raw.items()), file=sys.stderr)
-    return {k: statistics.median(v) for k, v in raw.items()}
+
+def time_engines(engines: dict, rounds: int, frames: int) -> dict:
+    """{name: [ms a frame, one a round]} of each engine's body
+    (:func:`frame_bodies`) over ``rounds`` round-robin loops of ``frames``
+    (after one untimed loop each)."""
+    device = next(iter(engines.values())).device
+    return timing.round_robin(frame_bodies(engines), rounds, frames, device)
 
 
 def make_engine(cfg: RenderConfig, device, world: str,
@@ -138,7 +149,8 @@ def main(argv: Optional[list] = None,
          base: Optional[RenderConfig] = None) -> list:
     """Render, compare and print the report; returns its rows (dicts with
     ``config``, ``psnr_db``, ``over_1_lsb_pct``, ``over_4_lsb_pct``,
-    ``ms_per_frame`` (None without ``--time``) and ``sdr``, the frame).
+    ``ms_per_frame`` (the median of ``ms_rounds``, each round's; None
+    without ``--time``) and ``sdr``, the frame).
     ``base``: the envelope the configurations derive from (default
     ``RenderConfig()``), at ``--width`` x ``--height``."""
     ap = argparse.ArgumentParser(description="fidelity report against "
@@ -194,7 +206,10 @@ def main(argv: Optional[list] = None,
     rows = []
     for name, img in frames.items():
         row = compare_row(name, img, frames[BASELINE])
-        rows.append({**row, "ms_per_frame": times.get(name), "sdr": img})
+        ms = times.get(name)
+        rows.append({**row, "ms_per_frame": None if ms is None else
+                     statistics.median(ms),
+                     "ms_rounds": ms, "sdr": img})
     print("\n".join(table(rows)))
     return rows
 
