@@ -1,0 +1,90 @@
+"""A configuration's scene, as the benchmark makes it: the plain description
+that the reference reads (``reference/scene.py``) and the engine that the
+window drives, built from the same description through the port's public
+API (a level file through the engine's own loader)."""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .reference import scene as refscene
+
+F32 = np.float32
+
+
+def describe(config: dict, root: str) -> dict:
+    """The plain scene of a configuration's ``scene`` entry: ``{"level":
+    path}`` or ``{"grid": {"cubes": n, "seed": s}}``."""
+    s = config["scene"]
+    if "level" in s:
+        return refscene.level_scene(os.path.join(root, s["level"]))
+    if "grid" in s:
+        return refscene.grid_scene(s["grid"]["cubes"], s["grid"]["seed"])
+    raise ValueError(f"unknown scene {s!r}")
+
+
+def _world(desc: dict):
+    """The port's World of a plain scene (a light's billboard is added by
+    the World itself)."""
+    from tinyrenderer_tpu_torch.scene import components as comp
+    from tinyrenderer_tpu_torch.scene.world import (OmnipresentObject, World,
+                                                    WorldObject)
+
+    world = World()
+    lights = iter(desc["point_lights"])
+    for o in desc["objects"]:
+        t = comp.TransformComponent(position=np.asarray(o["position"], F32),
+                                    scale=np.asarray(o["scale"], F32),
+                                    rotation=np.asarray(o["rotation"], F32))
+        if o["material"] is None:
+            light = next(lights)
+            world.add_world_object(WorldObject(
+                components=[comp.LightObjectComponent(light=comp.PointLight(
+                    color=np.asarray(light["color"], F32)))],
+                transform=t))
+            continue
+        m = o["material"]
+        mat = comp.PbrMaterialDescriptor(flat=comp.PbrParameters(
+            albedo=np.asarray(m["albedo"], F32), roughness=m["roughness"],
+            metalness=m["metalness"]))
+        world.add_world_object(WorldObject(
+            components=[comp.RenderableComponent(
+                model_descriptor=comp.ModelDescriptor(
+                    mesh_descriptor=comp.MeshDescriptor.primitive(
+                        comp.PrimitiveShape(o["mesh"].capitalize())),
+                    material_descriptor=mat),
+                rendering_options=comp.ModelRenderingOptions(
+                    cast_shadows=o["cast_shadows"],
+                    pbr_resource_type=comp.PbrRenderingType.FlatParameters))],
+            transform=t))
+    for d in desc["directional_lights"]:
+        world.add_omnipresent_object(OmnipresentObject(components=[
+            comp.DirectionalLight(direction=np.asarray(d["direction"], F32),
+                                  color=np.asarray(d["color"], F32))]))
+    return world
+
+
+def build_engine(config: dict, desc: dict, root: str, device):
+    """The engine of a configuration: its ``render`` fields, its scene, its
+    ``params`` set (index by the frame module's ``PARAM_`` names)."""
+    from tinyrenderer_tpu_torch.config import RenderConfig
+    from tinyrenderer_tpu_torch.render import frame as framelib
+    from tinyrenderer_tpu_torch.render.engine import Engine
+    from tinyrenderer_tpu_torch.scene.camera import Camera
+
+    cfg = RenderConfig(**config["render"])
+    s = config["scene"]
+    if "level" in s:
+        eng = Engine(cfg=cfg, device=device,
+                     level_path=os.path.join(root, s["level"]))
+    else:
+        cam = Camera.new_default(cfg.width, cfg.height)
+        cam.look_at(np.asarray(desc["camera"]["position"], F32)
+                    + np.asarray(desc["camera"]["forward"], F32))
+        eng = Engine.from_world(_world(desc), camera=cam, cfg=cfg,
+                                device=device)
+    for name, value in config.get("params", {}).items():
+        eng.set_param(getattr(framelib, "PARAM_" + name.upper()), value)
+    return eng
