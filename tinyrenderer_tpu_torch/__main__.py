@@ -66,7 +66,7 @@ def main() -> None:
     out = eng.run_frame()
     image_io.save_png(args.out, out.sdr.cpu().numpy())
     print(f"wrote {args.out} ({eng.cfg.width}x{eng.cfg.height}, "
-          f"{eng.last_frame_ms:.2f} ms frame, {device})")
+          f"{eng.last_frame_ms:.2f} ms host, {device})")
     if args.stats:
         pick = out.pick_id
         ids = pick.unique()

@@ -66,6 +66,7 @@ from ..scene.camera import Camera
 from ..scene.world import World
 from ..utils import async_fetch
 from ..utils.notify import Notifier
+from ..utils.spans import span
 from . import frame as framelib
 from . import reload as reloadlib
 from .scene_gpu import CapacityError, PackResult, ScenePacker
@@ -305,7 +306,8 @@ class Engine:
     # -- params and frame lifecycle -----------------------------------------
 
     def set_param(self, index: int, value: float) -> None:
-        self.params[index] = value
+        with span("engine.set_param"):
+            self.params[index] = value
 
     def update(self, delta_seconds: float = 0.0) -> None:
         self.camera.update(delta_seconds)
@@ -315,6 +317,10 @@ class Engine:
             self._repack()
 
     def _repack(self) -> None:
+        with span("engine.repack"):
+            self._repack_body()
+
+    def _repack_body(self) -> None:
         self._atlas = None   # scene or lights changed: shadow maps are stale
         # the packer's texture pool is sized when it is built: a config
         # whose pool envelope changed at run time (a preset with another
@@ -381,22 +387,21 @@ class Engine:
             cam_raw = cam_raw.pin_memory()
         if frame is None:
             cam_raw = cam_raw.to(self.device, non_blocking=True)
-        t0 = time.perf_counter()
         if (self._atlas is None and cfg.enable_shadows
                 and cfg.num_shadow_views > 0):
             # camera-independent: rendered once per scene edit
-            self._atlas, s_ovf, s_big = (
-                framelib.compiled_shadow_atlas(cfg)(scene, lights)
-                if self._settled
-                else framelib.render_shadow_atlas(scene, lights, cfg))
+            with span("engine.atlas"):
+                self._atlas, s_ovf, s_big = (
+                    framelib.compiled_shadow_atlas(cfg)(scene, lights)
+                    if self._settled
+                    else framelib.render_shadow_atlas(scene, lights, cfg))
             self._queue_overflow(("shadow", "binsbig"),
                                  torch.stack([s_ovf, s_big]))
         args = (scene, self._packer.pool_for(cfg, self.device), lights,
                 cam_raw, self.params, env)
-        out = (frame(*args, self._atlas) if frame is not None
-               else framelib.render_frame(*args, cfg, self._atlas))
-        # dispatch time: the device may still be running the frame
-        self.last_frame_ms = (time.perf_counter() - t0) * 1e3
+        with span("engine.replay"):
+            out = (frame(*args, self._atlas) if frame is not None
+                   else framelib.render_frame(*args, cfg, self._atlas))
         self.last_output = out
         self.frame_index += 1
         # out.shadow_overflow is a constant 0 when the atlas is cached (every
@@ -443,6 +448,8 @@ class Engine:
                 if len(self._overflow_inflight) < 4:
                     break
                 self.monitor_waits += 1
+                with span("engine.monitor_wait"):
+                    head.result()       # waits; the value is kept
             self._overflow_inflight.pop(0)
             if self._apply_monitor_values(kinds, head.result()):
                 return
@@ -533,10 +540,14 @@ class Engine:
         self.world.on_end_frame()
 
     def run_frame(self, delta_seconds: float = 0.0) -> framelib.FrameOutput:
-        """update -> render -> on_end_frame."""
-        self.update(delta_seconds)
-        out = self.render()
-        self.on_end_frame()
+        """update -> render -> on_end_frame. ``last_frame_ms`` is the
+        call's host ms: the device may still be running the frame."""
+        t0 = time.perf_counter()
+        with span("engine.frame"):
+            self.update(delta_seconds)
+            out = self.render()
+            self.on_end_frame()
+        self.last_frame_ms = (time.perf_counter() - t0) * 1e3
         return out
 
     def present_numpy(self) -> np.ndarray:

@@ -32,6 +32,7 @@ from ..ops import sampling
 from ..scene import components as comp
 from ..scene import lights as lightslib
 from ..scene.world import World
+from ..utils.spans import span
 
 log = logging.getLogger(__name__)
 
@@ -372,6 +373,7 @@ class ScenePacker:
             "mat_record": cat([m[2] for m in self._materials], (Mc,), I32),
             **dataclasses.asdict(packed),
         }
-        return PackResult(scene=scene_from_numpy(host, device),
-                          lights=lights_from_numpy(host, device),
-                          counts=counts)
+        with span("pack.upload"):
+            scene = scene_from_numpy(host, device)
+            lights = lights_from_numpy(host, device)
+        return PackResult(scene=scene, lights=lights, counts=counts)

@@ -142,6 +142,9 @@ class ViewerServer:
         with self.lock:
             eng = self.app.engine
             return {
+                # the host ms of the last run_frame call (the device may
+                # still be running the frame), under the reference
+                # viewer's key
                 "frame_ms": round(eng.last_frame_ms, 3),
                 "frame_index": eng.frame_index,
                 "selected": self.app.selected_object_id,
