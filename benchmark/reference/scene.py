@@ -1,14 +1,17 @@
 """The scene as the plain reference sees it: a description made by the
-benchmark (a parsed ``.lvl`` file or a seeded recipe), the two primitive
-meshes, the camera and light matrices.
+benchmark (a parsed ``.lvl`` file or a seeded recipe), its meshes (the two
+primitives and OBJ files of the repository), the camera and light
+matrices.
 
 A scene is a dict of plain values:
 
 - ``objects``: one dict an object that draws, in id order: ``oid``,
-  ``mesh`` (``"cube"`` or ``"square"``), ``position``, ``rotation`` (a
-  quaternion x, y, z, w), ``scale``, ``material`` (``albedo``,
-  ``roughness``, ``metalness``) or None for the light's billboard, and
-  ``forward`` (the overlay pass, drawn on top) and ``cast_shadows``;
+  ``mesh`` (``"cube"``, ``"square"`` or the path of an ``.obj`` file
+  relative to the repository's root, read by :func:`read_obj`),
+  ``position``, ``rotation`` (a quaternion x, y, z, w), ``scale``,
+  ``material`` (``albedo``, ``roughness``, ``metalness``) or None for the
+  light's billboard, and ``forward`` (the overlay pass, drawn on top) and
+  ``cast_shadows``;
 - ``point_lights`` (``position``, ``color``) and ``directional_lights``
   (``direction``, ``color``), in id order;
 - ``camera``: ``position``, ``forward`` (a unit vector), ``up``,
@@ -25,12 +28,18 @@ projection is reverse-Z.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
+import os
 
 import numpy as np
 
 F32 = np.float32
+# the repository's root: an OBJ mesh's path is relative to it, as the
+# engine's asset search path is
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 # the light billboard's colour: the engine's default albedo texture (its
 # light-bulb image is not shipped), opaque and unlit
@@ -71,6 +80,71 @@ def square_mesh():
 
 
 MESHES = {"cube": cube_mesh, "square": square_mesh}
+
+
+# The engine's OBJ loader, as upstream's (tobj with GPU_LOAD_OPTIONS,
+# src/resource_loader.rs:316-353) and the port's native one: faces
+# fan-triangulated in file order, groups and objects merged into one mesh,
+# one vertex a distinct (v, vt, vn) index triple in first-use order,
+# negative indices counted back from the last element read, a missing
+# normal zero. The triangle order matters: equal depth goes to the larger
+# triangle index. Two tokens naming one triple (-1 and the last index)
+# share a vertex here and in the native loader, not in the port's Python
+# fallback, which keys by the token's text: the vertex numbering differs,
+# no triangle's corners.
+@functools.lru_cache(maxsize=None)
+def read_obj(path: str):
+    """(positions (V, 3), normals (V, 3), triangles (T, 3)) of an OBJ file,
+    read once a path; the arrays are read-only."""
+    counts = {"v": 0, "vt": 0, "vn": 0}
+    raw_pos, raw_nrm = [], []
+    index, pos, nrm, tri = {}, [], [], []
+
+    def resolve(token: str, kind: str):
+        if not token:
+            return None
+        i = int(token)
+        return i - 1 if i > 0 else counts[kind] + i
+
+    def vertex(token: str) -> int:
+        parts = token.split("/") + ["", ""]
+        key = (resolve(parts[0], "v"), resolve(parts[1], "vt"),
+               resolve(parts[2], "vn"))
+        if key not in index:
+            index[key] = len(pos)
+            pos.append(raw_pos[key[0]])
+            nrm.append((0.0, 0.0, 0.0) if key[2] is None else raw_nrm[key[2]])
+        return index[key]
+
+    with open(path, "r", encoding="utf-8", errors="replace") as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            tag = parts[0]
+            if tag in counts:
+                counts[tag] += 1
+                if tag == "v":
+                    raw_pos.append(tuple(float(x) for x in parts[1:4]))
+                elif tag == "vn":
+                    raw_nrm.append(tuple(float(x) for x in parts[1:4]))
+            elif tag == "f":
+                corners = [vertex(t) for t in parts[1:]]
+                tri += [(corners[0], corners[k], corners[k + 1])
+                        for k in range(1, len(corners) - 1)]
+    out = (np.array(pos, F32).reshape(-1, 3), np.array(nrm, F32).reshape(-1, 3),
+           np.array(tri, np.int64).reshape(-1, 3))
+    for a in out:
+        a.flags.writeable = False
+    return out
+
+
+def mesh(name: str):
+    """An object's mesh by its ``mesh``: a primitive's, else the OBJ file
+    at that path under :data:`ROOT`."""
+    if name in MESHES:
+        return MESHES[name]()
+    return read_obj(os.path.join(ROOT, name))
 
 
 # ---- matrices (float64, row-major, M @ v) ----------------------------------
@@ -171,6 +245,19 @@ def _billboard(oid: int, transform: dict) -> dict:
                 material=None, forward=True, cast_shadows=False)
 
 
+def _level_mesh(oid: int, desc: dict, flat) -> str:
+    """An object's ``mesh`` from its level descriptor: a Cube or Square
+    primitive, or a ``FromFile`` OBJ path, each with a ``Flat`` material."""
+    prim, path = desc.get("PrimitiveInCode"), desc.get("FromFile")
+    if flat is not None:
+        if prim in ("Cube", "Square"):
+            return prim.lower()
+        if isinstance(path, str) and path.lower().endswith(".obj"):
+            return path
+    raise ValueError(f"object {oid}: the reference draws flat primitives "
+                     f"and flat OBJ meshes only")
+
+
 def level_scene(path: str) -> dict:
     """The scene of an upstream ``.lvl`` file: world objects take ids 1, 2,
     ... in file order, then the omnipresent objects."""
@@ -193,15 +280,12 @@ def level_scene(path: str) -> dict:
                 renderable = True
                 r = c["Renderable"]
                 md = r["model_descriptor"]
-                mesh = md["mesh_descriptor"].get("PrimitiveInCode")
                 flat = md["material_descriptor"].get("Flat")
-                if mesh not in ("Cube", "Square") or flat is None:
-                    raise ValueError(f"object {oid}: the reference draws "
-                                     f"flat primitives only")
                 opts = r.get("rendering_options", {})
                 fwd = opts.get("pass") == "ForceForwardAfterDeferred"
                 objects.append(dict(
-                    oid=oid, mesh=mesh.lower(), **t,
+                    oid=oid, mesh=_level_mesh(oid, md["mesh_descriptor"], flat),
+                    **t,
                     material=dict(albedo=flat["albedo"],
                                   roughness=flat["roughness"],
                                   metalness=flat["metalness"]),
@@ -268,12 +352,15 @@ def grid_scene(n_cubes: int, seed: int) -> dict:
 
 
 def horizontal_bound(scene: dict) -> float:
-    """The largest |x| or |z| any deferred object reaches."""
+    """The largest |x| or |z| any deferred object reaches: its position's
+    plus its mesh's largest local |x| or |z| times its scale, rotation
+    aside (1 for the cube)."""
     b = 0.0
     for o in scene["objects"]:
         if not o["forward"]:
             p, s = np.abs(o["position"]), np.abs(o["scale"])
-            b = max(b, float(p[0] + s[0]), float(p[2] + s[2]))
+            ex, ez = np.abs(mesh(o["mesh"])[0][:, [0, 2]]).max(0).astype(float)
+            b = max(b, float(p[0] + ex * s[0]), float(p[2] + ez * s[2]))
     return b
 
 
@@ -286,7 +373,7 @@ def triangles(scene: dict):
     models = []
     base = 0
     for k, o in enumerate(scene["objects"]):
-        p, n, t = MESHES[o["mesh"]]()
+        p, n, t = mesh(o["mesh"])
         models.append((model_matrix(o["position"], o["rotation"], o["scale"]),
                        p.shape[0]))
         pos.append(p)
