@@ -23,6 +23,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import planes
 import pytest
 import torch
 
@@ -174,6 +175,12 @@ def test_compiled_frame_on_the_cpu_matches_the_reference():
     j_out = jframe.compiled_frame(jcfg)(
         jeng._pack.scene, jeng._packer.pool_for(jcfg), jeng._pack.lights,
         jnp.asarray(jeng.camera.to_raw()), jeng.params, jenv)
+    # the parity decision (tests/planes.py): equal under the JAX package's
+    # rounding of the raster planes; the port's own frame held to the JAX
+    # frame by planes.hold_frame
+    under_jax, f64 = planes.beside(lambda: tframe.compiled_frame(cfg)(*args))
+    planes.hold_frame(t_out, j_out, f64)
+    t_out = under_jax
     jp = np.asarray(j_out.pick_id)
     assert np.array_equal(t_out.pick_id.numpy(), jp)
     assert np.array_equal(t_out.depth.numpy(), np.asarray(j_out.depth))

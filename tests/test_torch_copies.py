@@ -39,16 +39,42 @@ VERBATIM = ("config.py", "editor/params.py", "editor/gizmo.py", "editor/controll
 
 # copies whose docstrings were reworded: the same code
 SAME_CODE = ("editor/events.py",)
+# repairs a copy carries on purpose: (the reference's text, the copy's)
+REPAIRS = {"assets/mesh.py": [(
+    """    def vertex_for(token: str) -> int:
+        key = token
+        got = vert_map.get(key)
+        if got is not None:
+            return got
+        parts = token.split("/")
+""", """    def vertex_for(token: str) -> int:
+        # keyed by the resolved index triple, as the native loader keys it:
+        # "1/1/1" and "01/1/1" (or a relative index) name one vertex
+        parts = token.split("/")
+"""), (
+    """            ni = n - 1 if n > 0 else len(raw_norm) + n
+        idx = len(positions)
+""", """            ni = n - 1 if n > 0 else len(raw_norm) + n
+        key = (pi, ti, ni)
+        got = vert_map.get(key)
+        if got is not None:
+            return got
+        idx = len(positions)
+""")]}
 
 
 @pytest.mark.parametrize("path", VERBATIM)
 def test_verbatim_copies_are_the_reference_files(path):
     """Each copy is the reference module's file, byte for byte, under the
-    same relative path."""
+    same relative path, after the repairs listed in ``REPAIRS`` (each
+    applied to exactly one place of the reference's text)."""
     with open(os.path.join(ROOT, "tinyrenderer_tpu", path), "rb") as f:
-        ref = f.read()
+        ref = f.read().decode()
+    for old, new in REPAIRS.get(path, ()):
+        assert ref.count(old) == 1, old
+        ref = ref.replace(old, new)
     with open(os.path.join(ROOT, "tinyrenderer_tpu_torch", path), "rb") as f:
-        assert f.read() == ref
+        assert f.read().decode() == ref
 
 
 def _code(path: str) -> str:

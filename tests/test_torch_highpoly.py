@@ -9,6 +9,7 @@ Each side builds its worlds and configurations from its own package."""
 import dataclasses
 
 import numpy as np
+import planes
 import pytest
 import torch
 
@@ -70,12 +71,18 @@ def test_stream_frame_matches_jax_engine(scene):
     env = je._ensure_env()
     t_env = tframe.EnvGPU(**{k: torch.from_numpy(np.array(v))
                              for k, v in env._asdict().items()})
-    t_out = tframe.render_frame(
+    t_out, port, f64 = planes.three(lambda: tframe.render_frame(
         tscene.scene_from_numpy(_host(je._pack.scene), "cpu"),
         tsampling.pool_from_numpy(vars(je._packer.pool_for(cfg)), "cpu"),
         tscene.lights_from_numpy(_host(je._pack.lights), "cpu"),
         torch.from_numpy(je.camera.to_raw()),
-        torch.from_numpy(np.array(je.params)), t_env, cfg)
+        torch.from_numpy(np.array(je.params)), t_env, cfg))
+    # the parity decision (tests/planes.py): the port's own frame held to
+    # the JAX frame by planes.hold_frame, its monitors too; below, the
+    # port's frame under the JAX package's rounding of the planes against
+    # the JAX frame as before
+    planes.hold_frame(port, j_out, f64,
+                      ("bin_overflow", "big_overflow", "stream_overflow"))
     for f in ("bin_overflow", "big_overflow", "stream_overflow"):
         assert int(getattr(t_out, f)) == int(getattr(j_out, f)), f
     assert 0 < int(t_out.stream_overflow) <= cfg.stream_capacity
@@ -146,3 +153,22 @@ def test_engine_grows_stream_and_big_capacities():
     assert te.cfg == grown
     assert int(out.stream_overflow) <= grown.stream_capacity
     assert int(out.big_overflow) <= grown.bin_big_capacity
+
+
+def test_engine_counts_the_stream_pairs_it_applies():
+    """``Engine.stream_pairs`` sums the ``stream`` monitor's values as the
+    engine applies them (the settle's reads and the queued ones) and
+    ``Engine.stream_frames`` counts those frames, each engine its own; a
+    fetch discarded unread counts nothing."""
+    te = TEngine.from_world(demo.build_demo_world(n_cubes=2), cfg=CFG,
+                            device="cpu")
+    other = TEngine.from_world(demo.build_demo_world(n_cubes=2), cfg=CFG,
+                               device="cpu")
+    kinds = ("bins", "stream")
+    te._apply_monitor_values(kinds, torch.tensor([1, 3000]), shrink=False)
+    te._apply_monitor_values(kinds, torch.tensor([1, 5000]))
+    assert (te.stream_pairs, te.stream_frames) == (8000, 2)
+    te._overflow_inflight.append((kinds, None))
+    assert te._apply_monitor_values(("bins",), torch.tensor([1 << 20]))
+    assert not te._overflow_inflight and te.stream_frames == 2
+    assert (other.stream_pairs, other.stream_frames) == (0, 0)

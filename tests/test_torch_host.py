@@ -23,6 +23,7 @@ from tinyrenderer_tpu.render import global_params as jgp
 from tinyrenderer_tpu.render.engine import Engine as JEngine
 from tinyrenderer_tpu.utils import image_io as jimage_io
 from tinyrenderer_tpu_torch import kernels
+from tinyrenderer_tpu_torch.assets import mesh as meshlib
 from tinyrenderer_tpu_torch.assets import native
 from tinyrenderer_tpu_torch.config import RenderConfig
 from tinyrenderer_tpu_torch.editor.params import describe
@@ -354,3 +355,22 @@ def test_orbit_writes_frames_and_a_gif(tmp_path, monkeypatch):
         orbit.main(["--frames", "1", "--out", str(tmp_path / "none")])
     assert "no CUDA device" in str(e.value.code)
     assert not (tmp_path / "none").exists()
+
+
+def test_obj_fallback_keys_a_vertex_by_its_index_triple(tmp_path, monkeypatch):
+    """Tokens that differ in text but name one (v, vt, vn) triple ("1/1/1",
+    "01/1/1", "-4/-4/-1") are one vertex in the Python fallback, as in the
+    native loader: both give the same mesh."""
+    obj = ("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nvt 0 0\nvt 1 0\nvt 1 1\n"
+           "vt 0 1\nvn 0 0 1\nf 1/1/1 2/2/1 3/3/1\nf 01/1/1 3/3/1 4/4/1\n"
+           "f -4/-4/-1 03/3/01 4/4/1\n")
+    path = tmp_path / "quad.obj"
+    path.write_text(obj)
+    assert native.available()
+    nat = meshlib.load_obj(str(path))
+    monkeypatch.setattr(native, "parse_obj", lambda p: None)
+    py = meshlib.load_obj(str(path))
+    assert py.positions.shape[0] == 4
+    for f in dataclasses.fields(py):
+        np.testing.assert_array_equal(getattr(py, f.name),
+                                      getattr(nat, f.name), err_msg=f.name)

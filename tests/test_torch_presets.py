@@ -14,6 +14,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import planes
 import pytest
 import torch
 
@@ -90,14 +91,20 @@ def _jax_frame(world: str, cfg: RenderConfig, jax_engines):
 
 def _frames_agree(world: str, cfg: RenderConfig, jax_engines):
     """The port engine's first frame and the JAX engine's under ``cfg``:
-    the same derived envelope, equal pick ids and depth, and the
-    tone-mapped frames pass the repo's edge-aware comparator."""
+    the same derived envelope; under the JAX package's rounding of the
+    raster planes (tests/planes.py), equal pick ids and depth, and the
+    tone-mapped frames pass the repo's edge-aware comparator; the port's
+    own frame is held to the JAX frame by ``planes.hold_frame`` (no
+    farther from the float64 planes' frame than the JAX frame, the
+    edge-aware comparator, the sky and tex monitors)."""
     je, j_out = _jax_frame(world, cfg, jax_engines)
     te = TEngine.from_world(
         demo.build_demo_world(**WORLDS[world]),
         camera=demo.build_demo_camera(cfg.width, cfg.height), cfg=cfg,
         device="cpu")
-    t_out = te.run_frame(0.0)
+    port = te.run_frame(0.0)
+    t_out, f64 = planes.beside(lambda: planes.rerun(te))
+    planes.hold_frame(port, j_out, f64, ("sky_blocks", "tex_overflow"))
     assert dataclasses.asdict(te.cfg) == dataclasses.asdict(je.cfg)
     jp = np.asarray(j_out.pick_id)
     assert np.array_equal(t_out.pick_id.numpy(), jp)
@@ -108,7 +115,7 @@ def _frames_agree(world: str, cfg: RenderConfig, jax_engines):
     assert len(np.unique(jp)) > 2 and (jp == 0).any()   # geometry + sky
     assert int(t_out.sky_blocks) == int(j_out.sky_blocks)
     assert t_out.tex_overflow.tolist() == np.asarray(j_out.tex_overflow).tolist()
-    return te, t_out
+    return te, port
 
 
 # the six configurations the port refused before this slice

@@ -18,6 +18,7 @@ import threading
 import jax
 import jax.numpy as jnp
 import numpy as np
+import planes
 import pytest
 import torch
 
@@ -244,8 +245,8 @@ class _Ranks:
 
     def _run(self, job):
         try:
-            self.result = launch(jobs.frame_job, RANKS, "gloo", "cpu", job,
-                                 timeout_s=300)
+            self.result = launch(planes.sharded_frame_job, RANKS, "gloo",
+                                 "cpu", job, timeout_s=300)
         except Exception as e:      # re-raised in the test that reads it
             self.error = e
 
@@ -305,9 +306,12 @@ def world():
     return make_world(CASES)
 
 
-def _port(world, case):
+def _port(world, case, form="port"):
+    """Rank 0's result of ``case`` under the plane form ``form`` of
+    ``planes.FORMS`` (the port's own planes by default)."""
     results = world["ranks"].get()
-    i = list(world["cases"]).index(case)
+    i = (list(world["cases"]).index(case)
+         + planes.FORMS.index(form) * len(world["cases"]))
     assert len({r[i]["digest"] for r in results}) == 1, \
         "the ranks returned different frames"
     return results[0][i]
@@ -342,11 +346,23 @@ def _sdr_diff(a, b):
 
 def check_matches_jax(world, case):
     """The port's sharded frame over gloo ranks against JAX
-    compiled_sharded_frame: pick ids equal, depth within 1e-6, the
+    compiled_sharded_frame: under the JAX package's rounding of the raster
+    planes (tests/planes.py), pick ids equal, depth within 1e-6, the
     tone-mapped frame within 1 LSB, every monitor equal; every rank
-    returned the same frame."""
+    returned the same frame. The port's own frame is held to the JAX
+    frame and the float64 planes' frame by ``planes.assert_nearer`` and
+    the edge-aware comparator, every monitor of it equal to the JAX
+    frame's."""
     j = _jax_frame(world, case)
-    t = _port(world, case)["out"]
+    names = ("pick_id", "depth", "sdr")
+    own = _port(world, case)["out"]
+    f64 = {k: _port(world, case, "float64")["out"][k] for k in names}
+    jax = planes.frame_fields(j, names)
+    planes.assert_nearer({k: own[k] for k in names}, jax, f64)
+    planes.assert_sdr(own["sdr"], jax, f64)
+    for f in jobs.FIELDS[4:10]:
+        assert own[f].tolist() == np.asarray(getattr(j, f)).tolist(), f
+    t = _port(world, case, "jax")["out"]
     assert t["sdr"].shape == j.sdr.shape
     np.testing.assert_array_equal(t["pick_id"], j.pick_id)
     np.testing.assert_allclose(t["depth"], j.depth, rtol=0, atol=1e-6)

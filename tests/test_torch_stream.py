@@ -10,6 +10,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import planes
 import pytest
 import torch
 
@@ -176,8 +177,14 @@ def test_render_shadow_views_scatter_matches():
     fn = jax.jit(functools.partial(jshadows.render_shadow_views, size=128,
                                    tile=32, bin_capacity=1024, big_capacity=4))
     ja, jo, jbig = fn(jnp.asarray(views), jnp.asarray(tri), jnp.asarray(mask))
-    ta, to, tbig = tshadows.render_shadow_views(
-        _t(views), _t(tri), _t(mask), 128, 32, 1024, big_capacity=4)
+    (ta, to, tbig), port, f64 = planes.three(
+        lambda: tshadows.render_shadow_views(
+            _t(views), _t(tri), _t(mask), 128, 32, 1024, big_capacity=4))
     assert int(to) == int(jo) and int(tbig) == int(jbig) > 4
+    # the parity decision (tests/planes.py): bit-equal under the JAX
+    # package's rounding of the planes; the port's own atlas held to the
+    # float64 planes' and no farther from it than the jitted reference's
     np.testing.assert_array_equal(ta.numpy().view(np.int32),
                                   np.asarray(ja).view(np.int32))
+    planes.assert_nearer({"depth": port[0]}, {"depth": ja}, {"depth": f64[0]},
+                         ids=None)

@@ -14,6 +14,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import planes
 import pytest
 import torch
 
@@ -163,6 +164,22 @@ def _assert_fields(t: dict, j, rel: float, frac: float = 0.0):
         assert off.mean() <= frac, (f, off.mean(), np.abs(a - b).max())
 
 
+def _hold_planes(raster, full, j, jfull, raster64, full64):
+    """The parity decision (tests/planes.py): the port's own raster stage
+    and frame against the JAX package's and the float64 planes' ones
+    (``planes.assert_nearer``); the port's own frame through the
+    edge-aware comparator against both."""
+    planes.assert_nearer(
+        {"pick_id": raster["tri_id"], "depth": raster["depth"]},
+        {"pick_id": j["tri_id"], "depth": j["depth"]},
+        {"pick_id": raster64["tri_id"], "depth": raster64["depth"]})
+    names = ("pick_id", "depth", "sdr")
+    own, f64 = ({k: d[k] for k in names} for d in (full, full64))
+    jax = planes.frame_fields(jfull, names)
+    planes.assert_nearer(own, jax, f64)
+    planes.assert_sdr(own["sdr"], jax, f64)
+
+
 def _assert_frame(t, j):
     jp = np.asarray(j.pick_id)
     assert (_np(t["pick_id"]) != jp).mean() <= 1e-3
@@ -187,7 +204,13 @@ def test_bench_stages_prefixes_match_the_reference_sequence(demo_pair):
     assert tuple(fns) == bench_stages.STAGES
     cam = timing.camera(te)
     j = _jax_stages(je)
-    out = {s: fn(cam) for s, fn in fns.items()}
+    # the checks below hold the stages under the JAX package's rounding of
+    # the raster planes; the port's own raster and frame are held under
+    # the parity decision (``_hold_planes``)
+    out, port, f64 = planes.three(lambda: {s: fn(cam) for s, fn in fns.items()})
+    jfull = _jax_full(je, _jax_atlas(je))
+    _hold_planes(port["raster"], port["full"], j, jfull, f64["raster"],
+                 f64["full"])
     assert torch.equal(out["null"]["camera"], cam)
     np.testing.assert_array_equal(_np(out["geometry"]["clip"]), j["clip"])
     np.testing.assert_array_equal(_np(out["setup"]["rows"]), j["rows"])
@@ -206,7 +229,7 @@ def test_bench_stages_prefixes_match_the_reference_sequence(demo_pair):
     mat = out["material"]
     assert int(mat.pop("tex_needed")) == int(j["tex_needed"])
     _assert_fields(mat, j["g"], rel=1e-5)
-    _assert_frame(out["full"], _jax_full(je, _jax_atlas(je)))
+    _assert_frame(out["full"], jfull)
 
 
 def test_profile_highpoly_prefixes_match_the_reference_sequence(stream_pair):
@@ -251,7 +274,12 @@ def test_profile_highpoly_prefixes_match_the_reference_sequence(stream_pair):
     fns = profile_highpoly.stage_fns(te)
     assert tuple(fns) == profile_highpoly.STAGES
     cam = timing.camera(te)
-    out = {s: fn(cam) for s, fn in fns.items()}
+    # as the demo world's stages: the checks below under the JAX package's
+    # rounding of the planes, the port's own under ``_hold_planes``
+    out, port, f64 = planes.three(lambda: {s: fn(cam) for s, fn in fns.items()})
+    jfull = _jax_full(je, _jax_atlas(je))
+    _hold_planes(port["+raster"], port["full_frame"], j, jfull,
+                 f64["+raster"], f64["full_frame"])
     for f in ("world", "clip"):
         np.testing.assert_array_equal(_np(out["geometry"][f]), j[f], f)
     np.testing.assert_array_equal(_np(out["+setup"]["rows"]), j["rows"])
@@ -271,7 +299,7 @@ def test_profile_highpoly_prefixes_match_the_reference_sequence(stream_pair):
         cfg.bin_capacity, bf16=cfg.bf16_attrs)
     _assert_fields(bench_stages.as_dict(same), j["r"], rel=0)
     _assert_fields(out["+resolve"], j["r"], rel=1e-5, frac=1e-3)
-    _assert_frame(out["full_frame"], _jax_full(je, _jax_atlas(je)))
+    _assert_frame(out["full_frame"], jfull)
 
 
 def test_stage_ledger_and_a_profile_group_on_the_cpu_clock(demo_pair,

@@ -10,6 +10,7 @@ import dataclasses
 import os
 
 import numpy as np
+import planes
 import pytest
 from PIL import Image
 
@@ -68,10 +69,21 @@ def engines(change: dict, world_kw: dict, ssr_strength=None):
     return je, je.run_frame(0.0), te, te.run_frame(0.0)
 
 
+MONITORS = ("bin_overflow", "big_overflow", "tex_overflow", "shadow_blocks",
+            "stream_overflow")
+
+
 def assert_frames_equal(te, je, t_out, j_out, fused_shading=False):
-    """Same derived configuration; pick ids and depth equal on every
-    pixel; the tone-mapped frames pass the repository's edge-aware
-    comparator; the capacity monitors agree."""
+    """Same derived configuration; under the JAX package's rounding of the
+    raster planes (tests/planes.py), pick ids and depth equal on every
+    pixel, the tone-mapped frames pass the repository's edge-aware
+    comparator and the capacity monitors agree; the port's own frame
+    ``t_out`` is held to the JAX frame by ``planes.hold_frame`` (no
+    farther from the float64 planes' frame than the JAX frame, the
+    edge-aware comparator, the capacity monitors)."""
+    under_jax, f64 = planes.beside(lambda: planes.rerun(te))
+    planes.hold_frame(t_out, j_out, f64, MONITORS)
+    t_out = under_jax
     assert dataclasses.asdict(te.cfg) == dataclasses.asdict(je.cfg)
     assert tframe.use_fused_shading(te.cfg) == fused_shading
     assert jframe._use_fused_shading(je.cfg) == fused_shading
@@ -83,8 +95,7 @@ def assert_frames_equal(te, je, t_out, j_out, fused_shading=False):
                                     pick=jp)
     assert res["status"] == "pass", res
     assert len(np.unique(jp)) > 2 and (jp == 0).any()      # geometry + sky
-    for f in ("bin_overflow", "big_overflow", "tex_overflow",
-              "shadow_blocks", "stream_overflow"):
+    for f in MONITORS:
         assert (np.asarray(getattr(t_out, f)).tolist()
                 == np.asarray(getattr(j_out, f)).tolist()), f
 

@@ -131,10 +131,8 @@ def parse_obj_text(text: str) -> MeshData:
     indices: list = []
 
     def vertex_for(token: str) -> int:
-        key = token
-        got = vert_map.get(key)
-        if got is not None:
-            return got
+        # keyed by the resolved index triple, as the native loader keys it:
+        # "1/1/1" and "01/1/1" (or a relative index) name one vertex
         parts = token.split("/")
         pi = int(parts[0])
         pi = pi - 1 if pi > 0 else len(raw_pos) + pi
@@ -145,6 +143,10 @@ def parse_obj_text(text: str) -> MeshData:
         if len(parts) > 2 and parts[2]:
             n = int(parts[2])
             ni = n - 1 if n > 0 else len(raw_norm) + n
+        key = (pi, ti, ni)
+        got = vert_map.get(key)
+        if got is not None:
+            return got
         idx = len(positions)
         positions.append(raw_pos[pi])
         tex_coords.append(raw_uv[ti] if ti is not None else (0.0, 0.0))

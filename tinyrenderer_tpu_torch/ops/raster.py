@@ -112,14 +112,12 @@ def transform_vertices(positions: torch.Tensor, vert_instance: torch.Tensor,
 
 
 def _screen_diffs(v: torch.Tensor, p: torch.Tensor, size: int,
-                  pairs: list, swapped: tuple) -> torch.Tensor:
-    """(T, len(pairs) + 1) corner differences p_a - p_b of screen
-    coordinates p = v * size, rounded as the reference's compiled setup
-    rounds them: ``fma(v_a, size, -p_b)`` for each (a, b) of ``pairs``,
-    then ``fma(-v_b, size, p_a)`` for the ``swapped`` pair."""
-    a, b = swapped
-    mul = torch.stack([v[:, i] for i, _ in pairs] + [-v[:, b]], 1)
-    add = torch.stack([-p[:, j] for _, j in pairs] + [p[:, a]], 1)
+                  pairs: list) -> torch.Tensor:
+    """(T, len(pairs)) corner differences p_a - p_b of screen coordinates
+    p = v * size, rounded as the reference's compiled setup rounds them:
+    ``fma(v_a, size, -p_b)`` for each (a, b) of ``pairs``."""
+    mul = torch.stack([v[:, i] for i, _ in pairs], 1)
+    add = torch.stack([-p[:, j] for _, j in pairs], 1)
     return fma(mul, v.new_full((), float(size)), add)
 
 
@@ -147,13 +145,11 @@ def triangle_setup(clip: torch.Tensor, tri_vidx: torch.Tensor,
     # products that feed a sum are fused as the reference's compiled frame
     # fuses them (ops/fp.py); the unfused form differs in the last bit.
     # Corner differences fuse the scaling: x_a - x_b = fma(vx_a, width,
-    # -x_b), except the depth planes' own copies of x2 - x1 and y1 - y2,
-    # which fuse the other product (exact alike when the size is a power
-    # of two)
-    dx10, dx20, dx21, dx02, dx21z = _screen_diffs(
-        vx, sx, width, [(1, 0), (2, 0), (2, 1), (0, 2)], (2, 1)).unbind(1)
-    dy20, dy10, dy12, dy01, dy12z = _screen_diffs(
-        vy, sy, height, [(2, 0), (1, 0), (1, 2), (0, 1)], (1, 2)).unbind(1)
+    # -x_b) (exact when the size is a power of two)
+    dx10, dx20, dx21, dx02 = _screen_diffs(
+        vx, sx, width, [(1, 0), (2, 0), (2, 1), (0, 2)]).unbind(1)
+    dy20, dy10, dy12, dy01 = _screen_diffs(
+        vy, sy, height, [(2, 0), (1, 0), (1, 2), (0, 1)]).unbind(1)
     area2 = fma(dx10, dy20, -(dx20 * dy10))
     if cull == "back":
         face_ok = area2 < 0.0
@@ -167,14 +163,29 @@ def triangle_setup(clip: torch.Tensor, tri_vidx: torch.Tensor,
     valid = tri_mask & w_ok & face_ok & big
     inv_area = 1.0 / torch.where(big, area2, torch.ones_like(area2))
     e0x, e0y = dy12 * inv_area, dx21 * inv_area
-    e0c = fma(x1, y2, -(x2 * y1)) * inv_area
     e1x, e1y = dy20 * inv_area, dx02 * inv_area
-    e1c = fma(x2, y0, -(x0 * y2)) * inv_area
     e2x, e2y = dy01 * inv_area, dx10 * inv_area
-    e2c = fma(x0, y1, -(x1 * y0)) * inv_area
-    zx = fma_chain([(dy12z * inv_area, zs[0]), (e1x, zs[1]), (e2x, zs[2])])
-    zy = affine3(dx21z * inv_area, zs[0], e1y, zs[1], e2y, zs[2])
-    zc = fma_chain([(e0c, zs[0]), (e1c, zs[1]), (e2c, zs[2])])
+    # The planes' constants are formed around a corner: a constant from
+    # absolute-coordinate cross products x_a*y_b - x_b*y_a cancels for a
+    # triangle small beside its distance from the origin (a rounding of
+    # ~|x * y| over a doubled area of a few px^2). An edge's constant
+    # comes from a vertex of that edge, where the edge function is 0: a
+    # slope times a coordinate does not cancel. The depth plane is solved
+    # from corners 1 and 2's offsets from corner 0 (of the rounded screen
+    # corners, whose differences close: the fused differences above need
+    # not sum to 0, and that residue times a depth would tilt the plane),
+    # and its constant is corner 0's depth.
+    (nx0, nx1, nx2), (ny0, ny1, ny2) = (-sx).unbind(1), (-sy).unbind(1)
+    e0c = fma_chain([(e0y, ny1), (e0x, nx1)])
+    e1c = fma_chain([(e1y, ny2), (e1x, nx2)])
+    e2c = fma_chain([(e2y, ny0), (e2x, nx0)])
+    rx1, ry1, nry1, nrx2, ry2 = x1 - x0, y1 - y0, y0 - y1, x0 - x2, y2 - y0
+    dz1, dz2 = zs[1] - zs[0], zs[2] - zs[0]
+    det = fma_chain([(nrx2, ry1), (rx1, ry2)])      # rx1*ry2 - rx2*ry1
+    det = det.masked_fill(det == 0.0, 1.0)
+    zx = fma_chain([(dz2, nry1), (dz1, ry2)]) / det
+    zy = fma_chain([(nrx2, dz1), (rx1, dz2)]) / det
+    zc = fma_chain([(zx, nx0), (zy, ny0)], c=zs[0])
     idf = torch.arange(1, tri_vidx.shape[0] + 1, dtype=F32,
                        device=clip.device)
     rows = torch.stack([e0x, e0y, e0c, e1x, e1y, e1c, e2x, e2y, e2c,

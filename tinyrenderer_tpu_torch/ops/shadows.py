@@ -58,8 +58,9 @@ def window_depth_maps(atlas: torch.Tensor) -> torch.Tensor:
 
 
 def gate_min_maps(win: torch.Tensor) -> torch.Tensor:
-    """(V, S, S, 4) windowed atlas -> (V, S, S) per-texel window minimum."""
-    return win.min(dim=-1).values
+    """(V, S, S, 4) windowed atlas -> (V, S, S) per-texel window minimum
+    (``amin``: no int64 index map beside it)."""
+    return win.amin(dim=-1)
 
 
 def _cube_face(d: torch.Tensor) -> torch.Tensor:

@@ -66,7 +66,7 @@ from ..scene.camera import Camera
 from ..scene.world import World
 from ..utils import async_fetch
 from ..utils.notify import Notifier
-from ..utils.spans import span
+from ..utils.spans import mark, recording, span
 from . import frame as framelib
 from . import reload as reloadlib
 from .scene_gpu import CapacityError, PackResult, ScenePacker
@@ -133,6 +133,11 @@ class Engine:
         # unread because a capacity changed under them
         self.monitor_waits = 0
         self.monitors_discarded = 0
+        # the main view's stream binning: (tile, triangle) pairs summed
+        # over the frames whose 'stream' monitor was applied, and those
+        # frames
+        self.stream_pairs = 0
+        self.stream_frames = 0
         self.frame_index = 0
         self.last_output: Optional[framelib.FrameOutput] = None
         self.last_frame_ms = 0.0
@@ -482,6 +487,15 @@ class Engine:
         from_atlas = "shadow" in kinds
         for kind, v in zip(kinds, vals):
             v = int(v)
+            if kind == "stream":
+                self.stream_pairs += v
+                self.stream_frames += 1
+                if v and recording():
+                    c = self.cfg
+                    if c.render_scale_pct != 100:   # the internal frame's
+                        c = framelib.scaled_config(c)       # grid
+                    mark("engine.stream_pairs", v, c.tiles_y, c.tiles_x,
+                         c.tile_h, c.tile_w)
             if from_atlas and kind == "binsbig":
                 self._shadow_big_need = max(v, 1)
             field, label = self._MONITORS[kind]

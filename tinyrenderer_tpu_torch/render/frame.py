@@ -166,10 +166,9 @@ def render_shadow_atlas(scene: SceneGPU, lights: LightsGPU,
     atlas, overflow, big = shadows.render_shadow_views(
         clip_views, scene.tri_vidx, scene.tri_shadow, cfg.shadow_size,
         cfg.shadow_tile, cfg.shadow_bin_capacity, cfg.bin_big_capacity)
-    win = shadows.window_depth_maps(atlas)
-    if cfg.shadow_bf16:
-        win = win.to(torch.bfloat16)
-    return win, overflow, big
+    if cfg.shadow_bf16:    # cast before the windows copy it: the same
+        atlas = atlas.to(torch.bfloat16)    # values at half the bytes
+    return shadows.window_depth_maps(atlas), overflow, big
 
 
 @functools.lru_cache(maxsize=8)

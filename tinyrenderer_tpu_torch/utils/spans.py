@@ -27,6 +27,22 @@ The spans and where they are:
 - ``engine.monitor_wait``: a wait for the oldest monitor fetch with four in
   flight (one a count of ``Engine.monitor_waits``);
 - ``engine.set_param``: ``Engine.set_param``.
+
+The marks, zero-length spans whose name carries a count (``mark``), so
+that a trace holds the count over its own stretch:
+
+- ``engine.stream_pairs:<pairs>:<tiles_y>:<tiles_x>:<tile_h>:<tile_w>``:
+  one frame's (tile, triangle) pairs of the main view's stream binning and
+  the internal frame's tile grid, as ``Engine._apply_monitor_values``
+  applies the frame's ``stream`` monitor (a few frames after the frame),
+  where it is not 0 (a frame off the stream path reads 0).
+
+The counters beside them, read from the engine:
+
+- ``Engine.monitor_waits``: the waits of ``engine.monitor_wait``;
+- ``Engine.stream_pairs`` and ``Engine.stream_frames``: the pairs of
+  ``engine.stream_pairs`` summed over the frames applied, and those
+  frames.
 """
 
 from __future__ import annotations
@@ -35,13 +51,22 @@ import contextlib
 
 import torch
 
-_recording = torch._C._autograd._profiler_enabled
+recording = torch._C._autograd._profiler_enabled    # () -> bool
 _NULL = contextlib.nullcontext()
+
+
+def mark(name: str, *counts: int) -> None:
+    """A zero-length ``record_function`` range named ``name`` and the
+    ``counts``, joined by ``:``, while a profiler records; else nothing."""
+    if recording():
+        with torch.profiler.record_function(
+                ":".join([name, *(str(int(c)) for c in counts)])):
+            pass
 
 
 def span(name: str):
     """A ``record_function`` range named ``name`` while a profiler
     records; else the shared no-op context manager."""
-    if _recording():
+    if recording():
         return torch.profiler.record_function(name)
     return _NULL
